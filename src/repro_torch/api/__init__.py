@@ -1,0 +1,15 @@
+"""``repro_torch.api`` — one declarative FitSpec and its eager executor.
+
+>>> from repro_torch import api
+>>> api.fit(x, y, api.FitSpec(degree=3)).poly      # on CUDA
+>>> api.fit(x, y, api.FitSpec(degree=3), device="cpu")
+"""
+from repro_torch.api.spec import (FitSpec, FitResult, IRLSOptions,
+                                  LSPIAOptions, METHODS, RAW_DATA_SOLVERS)
+from repro_torch.api.executors import fit, spec_from_legacy
+from repro_torch.engine.plan import NumericsPolicy
+
+__all__ = [
+    "FitSpec", "FitResult", "IRLSOptions", "LSPIAOptions", "METHODS",
+    "RAW_DATA_SOLVERS", "fit", "spec_from_legacy", "NumericsPolicy",
+]

@@ -1,0 +1,193 @@
+"""FitSpec — one declarative, validated description of a fit (port of
+``repro.api.spec``).
+
+This slice executes fixed-degree ``method="lse"`` specs through
+``api.fit``.  Degree search (ROADMAP Queue 1 item 7) and the IRLS / LSPIA
+methods (item 8) are later slices: their options are carried as data and
+validated here, and executing them raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core import basis as basis_lib
+from repro_torch.engine import plan as plan_lib
+
+METHODS = ("lse", "irls", "lspia")
+_LOSSES = ("huber", "tukey")
+
+# solver spellings that need the raw data (no moment-space equivalent):
+# valid in a FitSpec consumed by the eager executor only.
+RAW_DATA_SOLVERS = ("qr_vandermonde",)
+
+DEGREE_SEARCH_TODO = ("degree search (degree='auto' / DegreeSearch) is not "
+                      "ported yet: ROADMAP Queue 1 item 7 (select/)")
+
+
+@dataclasses.dataclass(frozen=True)
+class IRLSOptions:
+    """Options for ``method="irls"`` (bounded-influence IRLS)."""
+
+    loss: str = "huber"
+    c: float | None = None
+    max_iter: int = 30
+    tol: float = 1e-6
+    stream_sweeps: int = 3
+
+    def __post_init__(self):
+        if self.loss not in _LOSSES:
+            raise ValueError(f"loss={self.loss!r}; expected one of {_LOSSES}")
+        if self.max_iter < 1:
+            raise ValueError(f"max_iter must be >= 1, got {self.max_iter}")
+        if self.stream_sweeps < 1:
+            raise ValueError("stream_sweeps must be >= 1, got "
+                             f"{self.stream_sweeps}")
+
+
+@dataclasses.dataclass(frozen=True)
+class LSPIAOptions:
+    """Options for ``method="lspia"`` (progressive-iterative approximation)."""
+
+    tol: float = 1e-8
+    max_iter: int = 5000
+    power_iters: int = 12
+    step: float | None = None
+    momentum: float = 0.0
+    staleness: int = 4
+
+    def __post_init__(self):
+        if self.max_iter < 1:
+            raise ValueError(f"max_iter must be >= 1, got {self.max_iter}")
+        if self.power_iters < 1:
+            raise ValueError("power_iters must be >= 1, got "
+                             f"{self.power_iters}")
+        if not 0.0 <= self.momentum < 1.0:
+            raise ValueError("momentum must lie in [0, 1) (heavy-ball "
+                             f"stability), got {self.momentum}")
+        if self.staleness < 0:
+            raise ValueError(f"staleness must be >= 0, got {self.staleness}")
+
+
+def _as_domain_tuple(domain) -> tuple[float, float] | None:
+    """Normalize a Domain / (shift, scale) pair to a hashable float tuple."""
+    if domain is None:
+        return None
+    if isinstance(domain, basis_lib.Domain):
+        return (float(domain.shift), float(domain.scale))
+    shift, scale = domain
+    return (float(shift), float(scale))
+
+
+@dataclasses.dataclass(frozen=True)
+class FitSpec:
+    """The whole fitting question, validated once, hashable.
+
+    degree: an int (fixed-degree fit).  basis: "monomial" | "chebyshev".
+    method: "lse" | "irls" | "lspia".  domain: None (the numerics policy
+    decides) or a pinned ``(shift, scale)`` map.  numerics: the solver /
+    fallback / accumulation policy.  decay: exponential forgetting
+    γ ∈ (0, 1].  ridge: λI added to the Gram at solve time.  engine: the
+    moment-accumulation path, resolved by ``engine.plan_fit``."""
+
+    degree: int = 3
+    basis: str = basis_lib.MONOMIAL
+    method: str = "lse"
+    irls: IRLSOptions = IRLSOptions()
+    lspia: LSPIAOptions = LSPIAOptions()
+    domain: tuple[float, float] | None = None
+    numerics: plan_lib.NumericsPolicy = plan_lib.NumericsPolicy(solver="auto")
+    decay: float = 1.0
+    ridge: float = 0.0
+    engine: str = "auto"
+
+    def __post_init__(self):
+        if self.method not in METHODS:
+            raise ValueError(f"method={self.method!r}; expected one of "
+                             f"{METHODS}")
+        if self.basis not in (basis_lib.MONOMIAL, basis_lib.CHEBYSHEV):
+            raise ValueError(f"basis={self.basis!r}; expected "
+                             f"{(basis_lib.MONOMIAL, basis_lib.CHEBYSHEV)}")
+        if self.engine not in plan_lib.ENGINES:
+            raise ValueError(f"engine={self.engine!r}; expected one of "
+                             f"{plan_lib.ENGINES}")
+        object.__setattr__(self, "domain", _as_domain_tuple(self.domain))
+        if isinstance(self.degree, str) or hasattr(self.degree, "max_degree"):
+            raise NotImplementedError(DEGREE_SEARCH_TODO)
+        degree = int(self.degree)
+        if degree < 0:
+            raise ValueError(f"degree must be >= 0, got {degree}")
+        object.__setattr__(self, "degree", degree)
+        sol = self.numerics.solver
+        if sol == "lspia":
+            raise ValueError("spell the iterative method as "
+                             "FitSpec(method='lspia'), not as a solver")
+        valid = plan_lib.SOLVERS + RAW_DATA_SOLVERS
+        if sol not in valid:
+            raise ValueError(f"solver={sol!r}; expected one of {valid}")
+        if sol in RAW_DATA_SOLVERS and self.method != "lse":
+            raise ValueError(f"solver={sol!r} is an LSE direct solve; "
+                             f"method={self.method!r} cannot use it")
+        if sol in RAW_DATA_SOLVERS and self.ridge:
+            raise ValueError(
+                f"solver={sol!r} factors the raw rows and has no λI to "
+                "add — ridge regularization is a normal-equation concept; "
+                "drop ridge= or use a moment-path solver")
+        if not 0.0 < self.decay <= 1.0:
+            raise ValueError(f"decay must be in (0, 1], got {self.decay}")
+        if self.ridge < 0.0:
+            raise ValueError(f"ridge must be >= 0, got {self.ridge}")
+        if (self.engine in ("kernel", "kernel_plain", "kernel_packed")
+                and self.basis != basis_lib.MONOMIAL):
+            raise ValueError(
+                f"engine={self.engine!r} supports the monomial basis only "
+                f"(the kernels build monomial power rows); use "
+                f"engine='reference' or 'auto' for basis={self.basis!r}")
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.degree)
+
+    def domain_or(self, default: basis_lib.Domain | None = None,
+                  dtype=torch.float32, device=None):
+        """The pinned Domain as tensors, or ``default`` when unpinned."""
+        if self.domain is None:
+            return default
+        shift, scale = self.domain
+        return basis_lib.Domain(
+            torch.tensor(shift, dtype=dtype, device=device),
+            torch.tensor(scale, dtype=dtype, device=device))
+
+    def plan(self, shape: tuple[int, ...], dtype: Any, *,
+             weighted: bool = False, workload: str = "moments",
+             device=None):
+        """Lower this spec through ``engine.plan_fit``."""
+        pol = self.numerics
+        solver = "auto" if pol.solver in RAW_DATA_SOLVERS else pol.solver
+        return plan_lib.plan_fit(
+            shape, self.max_degree, basis=self.basis, dtype=dtype,
+            weighted=weighted or self.decay < 1.0, engine=self.engine,
+            accum_dtype=pol.accum_dtype, normalize=pol.normalize,
+            compensated=pol.compensated, solver=solver,
+            fallback=pol.fallback, cond_cap=pol.cond_cap, device=device,
+            workload=workload)
+
+
+@dataclasses.dataclass(frozen=True)
+class FitResult:
+    """What ``api.fit`` hands back: ``poly`` (ready to evaluate, carrying
+    its basis and Domain) and ``report``, the moment-space quality report
+    (SSE/R/count)."""
+
+    poly: Any
+    report: Any = None
+
+    @property
+    def coeffs(self):
+        return self.poly.coeffs
+
+    @property
+    def diagnostics(self):
+        return self.poly.diagnostics

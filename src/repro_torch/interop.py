@@ -1,0 +1,84 @@
+"""Carry state across from the JAX reference package, and back.
+
+The reference's ``Moments``, ``Domain``, ``Polynomial`` and ``FitSpec``
+are read by their field names, with every array taken through
+``numpy.asarray``: this module never imports the reference.  The tests feed
+the reference's state through it so that both packages solve the same
+thing; later slices carry ``Moments`` snapshots through it too.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.api.spec import FitSpec, IRLSOptions, LSPIAOptions
+from repro_torch.core.basis import Domain
+from repro_torch.core.fit import Polynomial
+from repro_torch.core.moments import Moments
+from repro_torch.device import resolve_device
+from repro_torch.engine.plan import NumericsPolicy
+
+MOMENT_FIELDS = ("gram", "vty", "yty", "count", "weight_sum")
+
+
+def tensor(a, device=None) -> torch.Tensor:
+    """A numpy-convertible array as a tensor of the same dtype."""
+    return torch.from_numpy(np.array(a, copy=True)).to(resolve_device(device))
+
+
+def torch_dtype(dtype):
+    """A numpy/JAX dtype (or its name) as the torch dtype; None stays None."""
+    if dtype is None:
+        return None
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def moments(ref, device=None) -> Moments:
+    return Moments(*(tensor(getattr(ref, f), device) for f in MOMENT_FIELDS))
+
+
+def domain(ref, device=None) -> Domain:
+    return Domain(tensor(ref.shift, device), tensor(ref.scale, device))
+
+
+def polynomial(ref, device=None) -> Polynomial:
+    """The reference Polynomial's coefficients, domain and basis (its
+    diagnostics are the solve's, recomputed by the port's own solve)."""
+    return Polynomial(coeffs=tensor(ref.coeffs, device),
+                      domain_shift=tensor(ref.domain_shift, device),
+                      domain_scale=tensor(ref.domain_scale, device),
+                      basis=ref.basis)
+
+
+def fit_spec(ref) -> FitSpec:
+    """The reference FitSpec's fields as the port's FitSpec (fixed-degree
+    specs only: degree search is a later slice)."""
+    pol = ref.numerics
+    numerics = NumericsPolicy(
+        accum_dtype=torch_dtype(pol.accum_dtype), compensated=pol.compensated,
+        normalize=pol.normalize, solver=pol.solver, fallback=pol.fallback,
+        cond_cap=pol.cond_cap)
+    return FitSpec(
+        degree=ref.degree, basis=ref.basis, method=ref.method,
+        irls=IRLSOptions(**{f.name: getattr(ref.irls, f.name)
+                            for f in dataclasses.fields(IRLSOptions)}),
+        lspia=LSPIAOptions(**{f.name: getattr(ref.lspia, f.name)
+                              for f in dataclasses.fields(LSPIAOptions)}),
+        domain=ref.domain, numerics=numerics, decay=ref.decay,
+        ridge=ref.ridge, engine=ref.engine)
+
+
+def to_numpy(obj) -> dict:
+    """A port dataclass (Moments, Domain, Polynomial, ...) as a dict of its
+    fields, tensors as numpy arrays (nested dataclasses recursively)."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        elif dataclasses.is_dataclass(v):
+            v = to_numpy(v)
+        out[f.name] = v
+    return out

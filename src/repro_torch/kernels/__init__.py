@@ -1,0 +1,7 @@
+"""Hand-written Hopper kernels of the port and their wrappers.
+
+The paper's own contribution was a CUDA moment kernel; the JAX reference
+re-expressed it as Pallas TPU kernels, and this package takes it back to
+the GPU: ``csrc/moments.cu`` (built by ``build.py``), launched by
+``moments.py``, wrapped by ``ops.py``, with the plain PyTorch oracles in
+``ref.py``."""

@@ -1,0 +1,214 @@
+"""Launchers of the Hopper moment and report kernels, with their plain
+PyTorch versions beside them.
+
+Each launcher takes (B, n) inputs and, for a CUDA tensor, checks shapes,
+dtypes, contiguity and device, allocates its outputs and split partials,
+launches the kernel of ``csrc/moments.cu`` on the current stream, raises if
+the launch failed, and adds one to its launch count.  For a CPU tensor it
+returns its plain version instead; the plain versions are also the oracles
+the card is checked against.
+
+=================  ==========================================================
+launcher           replaces (``repro/kernels/moments.py``)
+=================  ==========================================================
+``moments_plain``  ``_moments_kernel`` via ``moments_extended`` (:133, :296)
+``moments_packed`` ``_packed_moments_kernel`` via ``moments_packed_extended``
+                   with ``nbuf=0`` (:185, :327)
+``fused_report``   ``_fused_report_kernel`` via ``fused_report_sums``
+                   (:251, :392)
+=================  ==========================================================
+
+The moment launchers return each series' K×K extended Gram (K = degree+2,
+rows and columns x⁰…xᵐ, y), not the TPU kernels' 128×128 tile: the padding
+and the packed tile's cross-series blocks are MXU artefacts.
+"""
+from __future__ import annotations
+
+import torch
+
+K_PAD = 128                   # the reference tile: degree + 2 <= 128
+# these two mirror csrc/moments.cu (its register-path dispatch and kThreads)
+REGISTER_MAX_DEGREE = 14      # above this the kernels use shared memory
+THREADS = 256                 # threads per CTA
+SERIES_PER_PACKED_CTA = THREADS // 32   # moments_packed: one warp per task
+CTAS_PER_SM = 8               # split series until the grid covers this
+MIN_SPLIT_POINTS = 4096       # never split a series finer than this
+
+# the report sums, in the reference's SUM_* lane order
+REPORT_NAMES = ("sw", "sy", "syy", "sf", "sff", "syf", "sse")
+
+_IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+_ACC_CODES = {torch.float32: 0, torch.float64: 1}
+
+# launches per kernel since the last reset (read by chip_smoke.py and tests)
+_LAUNCHES = {"moments_plain": 0, "moments_packed": 0, "fused_report": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    return dict(_LAUNCHES)
+
+
+def packing_factor(degree: int) -> int:
+    """How many series the reference packs into one 128-row tile; the plan
+    layer keeps its rule (pack when this is >= 2)."""
+    return K_PAD // (degree + 2)
+
+
+def splits(b: int, n: int, tasks_per_cta: int, sm_count: int) -> int:
+    """Splits per series so that B·S tasks fill CTAS_PER_SM CTAs on every
+    SM, without cutting a series below MIN_SPLIT_POINTS points.  Depends
+    only on the shapes and the card, so a rerun gives the same bits."""
+    want = CTAS_PER_SM * sm_count * tasks_per_cta
+    s = max(1, -(-want // max(b, 1)))
+    return max(1, min(s, -(-n // MIN_SPLIT_POINTS)))
+
+
+# ------------------------------------------------------------ plain versions
+def moments_block_plain(x, y, w, degree: int, accum_dtype=torch.float32):
+    """(B, K, K) extended Gram (W·w)Wᵀ with W = [x⁰…xᵐ, y], built in the
+    accumulation dtype by iterated multiply."""
+    x = x.to(accum_dtype)
+    y = y.to(accum_dtype)
+    rows = [torch.ones_like(x)]
+    for _ in range(degree):
+        rows.append(rows[-1] * x)
+    rows.append(y)
+    wmat = torch.stack(rows, dim=-2)                      # (B, K, n)
+    lhs = wmat if w is None else wmat * w.to(accum_dtype)[:, None, :]
+    return torch.einsum("bkn,bjn->bkj", lhs, wmat)
+
+
+def fused_report_plain(x, y, w, coeffs, accum_dtype=torch.float32):
+    """(B, 7) report sums: Horner f, e = y - f, then Σw, Σwy, Σwy², Σwf,
+    Σwf², Σwyf, Σwe² per series."""
+    x = x.to(accum_dtype)
+    y = y.to(accum_dtype)
+    c = coeffs.to(accum_dtype)
+    m = c.shape[-1] - 1
+    f = torch.zeros_like(x) + c[:, m, None]
+    for k in range(m - 1, -1, -1):
+        f = f * x + c[:, k, None]
+    e = y - f
+    w = torch.ones_like(x) if w is None else w.to(accum_dtype)
+    return torch.stack([w.sum(-1), (w * y).sum(-1), (w * y * y).sum(-1),
+                        (w * f).sum(-1), (w * f * f).sum(-1),
+                        (w * y * f).sum(-1), (w * e * e).sum(-1)], dim=-1)
+
+
+# ---------------------------------------------------------------- launchers
+def _check_inputs(x, y, w, accum_dtype):
+    if x.ndim != 2 or y.shape != x.shape:
+        raise ValueError(f"expected x, y of one (B, n) shape, got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    if x.dtype not in _IN_CODES or y.dtype != x.dtype:
+        raise TypeError(f"x/y dtypes {x.dtype}/{y.dtype}: one of "
+                        f"{list(_IN_CODES)} expected for both")
+    if accum_dtype not in _ACC_CODES:
+        raise TypeError(f"accum_dtype {accum_dtype}: one of "
+                        f"{list(_ACC_CODES)} expected")
+    tensors = [x, y] + ([] if w is None else [w])
+    if w is not None and (w.shape != x.shape or w.dtype != accum_dtype):
+        raise ValueError("weights must match x's shape, in accum_dtype")
+    for t in tensors:
+        if t.device != x.device or t.device.type != "cuda":
+            raise ValueError("all inputs must lie on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        from repro_torch.kernels import build
+        msg = build.library().repro_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_moments(layout: int, name: str, x, y, w, degree: int,
+                    accum_dtype, compensated: bool):
+    from repro_torch.kernels import build
+    _check_inputs(x, y, w, accum_dtype)
+    if not 0 <= degree <= K_PAD - 2:
+        raise ValueError(f"degree {degree} too large for the kernels "
+                         f"(degree + 2 <= {K_PAD})")
+    b, n = x.shape
+    k = degree + 2
+    nsum = 3 * degree + 3
+    packed_cta = layout == 1 and degree <= REGISTER_MAX_DEGREE
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    s = splits(b, n, SERIES_PER_PACKED_CTA if packed_cta else 1, sm_count)
+    part_hi = torch.empty((b, s, nsum), dtype=accum_dtype, device=x.device)
+    part_lo = torch.empty_like(part_hi) if compensated else None
+    out = torch.empty((b, k, k), dtype=accum_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = build.library().repro_moments(
+            layout, _IN_CODES[x.dtype], _ACC_CODES[accum_dtype],
+            int(compensated), x.data_ptr(), y.data_ptr(), _ptr(w), b, n,
+            degree, s, part_hi.data_ptr(), _ptr(part_lo), out.data_ptr(),
+            stream)
+    _raise_on(err, name)
+    _LAUNCHES[name] += 1
+    return out
+
+
+def moments_plain(x, y, w=None, *, degree: int, accum_dtype=torch.float32,
+                  compensated: bool = False) -> torch.Tensor:
+    """(B, K, K) extended Grams; one CTA per (series, n-split).  On a CPU
+    tensor: the plain version."""
+    if x.device.type == "cpu":
+        return moments_block_plain(x, y, w, degree, accum_dtype)
+    return _launch_moments(0, "moments_plain", x, y, w, degree, accum_dtype,
+                           compensated)
+
+
+def moments_packed(x, y, w=None, *, degree: int, accum_dtype=torch.float32,
+                   compensated: bool = False) -> torch.Tensor:
+    """(B, K, K) extended Grams; one warp per (series, n-split), eight per
+    CTA (above degree 14 the shared-memory kernel, one CTA per task).  On a
+    CPU tensor: the plain version."""
+    if x.device.type == "cpu":
+        return moments_block_plain(x, y, w, degree, accum_dtype)
+    return _launch_moments(1, "moments_packed", x, y, w, degree, accum_dtype,
+                           compensated)
+
+
+def fused_report(x, y, w, coeffs, *, accum_dtype=torch.float32
+                 ) -> torch.Tensor:
+    """(B, 7) report sums in ``REPORT_NAMES`` order; ``coeffs``: (B, m+1)
+    monomial coefficients in accum_dtype.  On a CPU tensor: the plain
+    version."""
+    if x.device.type == "cpu":
+        return fused_report_plain(x, y, w, coeffs, accum_dtype)
+    from repro_torch.kernels import build
+    _check_inputs(x, y, w, accum_dtype)
+    b, n = x.shape
+    degree = coeffs.shape[-1] - 1
+    if (coeffs.shape != (b, degree + 1) or coeffs.dtype != accum_dtype
+            or coeffs.device != x.device or not coeffs.is_contiguous()):
+        raise ValueError("coeffs must be a contiguous (B, m+1) tensor in "
+                         "accum_dtype on x's device")
+    if degree + 1 > K_PAD:
+        raise ValueError(f"degree {degree} too large for K_PAD={K_PAD}")
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    s = splits(b, n, 1, sm_count)
+    nsum = len(REPORT_NAMES)
+    part = torch.empty((b, s, nsum), dtype=accum_dtype, device=x.device)
+    out = torch.empty((b, nsum), dtype=accum_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = build.library().repro_report(
+            _IN_CODES[x.dtype], _ACC_CODES[accum_dtype], x.data_ptr(),
+            y.data_ptr(), _ptr(w), coeffs.data_ptr(), b, n, degree, s,
+            part.data_ptr(), out.data_ptr(), stream)
+    _raise_on(err, "fused_report")
+    _LAUNCHES["fused_report"] += 1
+    return out

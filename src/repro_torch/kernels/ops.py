@@ -1,0 +1,127 @@
+"""Public wrappers around the moment/report kernels (port of
+``repro.kernels.ops``).
+
+Handles batch/flat shapes, packed-vs-plain path selection, the true-count
+versus Σw split, and extraction of ``Moments`` from the kernels' extended
+Gram.  The kernels bound-check ragged tails themselves and treat a missing
+weight array as all ones, so no padding copy is made: the results equal
+the reference's zero-weight padding.
+
+Count semantics: ``Moments.count`` is the TRUE number of contributing
+points (nonzero weight) and ``Moments.weight_sum`` is Σw, as on the
+reference path.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.moments import Moments
+from repro_torch.device import as_tensor, resolve_device
+from repro_torch.kernels import moments as kernel
+
+
+def _true_count(weights, b, n, dtype, device):
+    if weights is None:
+        return torch.full((b,), n, dtype=dtype, device=device)
+    return torch.sum((weights != 0).to(dtype), dim=-1)
+
+
+def _kernel_inputs(x, y, weights, accum_dtype):
+    """x/y in one dtype the kernels read (else both in accum_dtype),
+    weights in accum_dtype; all contiguous."""
+    if x.dtype != y.dtype or x.dtype not in (torch.float32, torch.bfloat16,
+                                             torch.float64):
+        x, y = x.to(accum_dtype), y.to(accum_dtype)
+    w = None if weights is None else weights.to(accum_dtype).contiguous()
+    return x.contiguous(), y.contiguous(), w
+
+
+def moments(x, y, degree: int, *, weights=None,
+            accum_dtype=torch.float32, packing: str = "auto",
+            compensated: bool = False, nbuf: int = 0,
+            device=None) -> Moments:
+    """Kernel-backed equivalent of ``core.gram_moments``.
+
+    Accepts (n,) or (B, n) inputs of float32, bfloat16 or float64;
+    returns Moments accumulated in ``accum_dtype`` (float32 by default)
+    with matching batch shape.  ``packing`` ∈ {"auto", "packed", "plain"}
+    picks the kernel; ``compensated=True`` turns on Kahan accumulation.
+    ``device=None`` means CUDA."""
+    if packing not in ("auto", "packed", "plain"):
+        raise ValueError(f"packing={packing!r}; expected 'auto', 'packed' "
+                         "or 'plain'")
+    if nbuf >= 2:
+        raise NotImplementedError(
+            "nbuf >= 2 (the multi-buffered DMA ring of the TPU packed "
+            "kernel) is not ported yet: ROADMAP Queue 2 row 3")
+    if nbuf != 0:
+        raise ValueError(f"nbuf={nbuf}: 0 (grid-streamed) or >= 2")
+    dev = resolve_device(device)
+    x = as_tensor(x, dev)
+    y = as_tensor(y, dev)
+    weights = None if weights is None else as_tensor(weights, dev)
+    if accum_dtype is None:
+        accum_dtype = torch.float32
+    flat = x.ndim == 1
+    if flat:
+        x, y = x[None], y[None]
+        if weights is not None:
+            weights = weights[None]
+    if x.ndim != 2:
+        raise ValueError("moments expects (n,) or (B, n) inputs")
+    b, n = x.shape
+    count = _true_count(weights, b, n, accum_dtype, dev)
+    weight_sum = (torch.full((b,), n, dtype=accum_dtype, device=dev)
+                  if weights is None
+                  else torch.sum(weights, dim=-1).to(accum_dtype))
+
+    pfac = kernel.packing_factor(degree)
+    use_packed = (packing == "packed"
+                  or (packing == "auto" and b > 1 and pfac > 1))
+    if use_packed and pfac < 2:
+        raise ValueError(f"degree {degree} leaves no room to pack "
+                         f"(packing_factor={pfac}); use packing='plain'")
+    xk, yk, wk = _kernel_inputs(x, y, weights, accum_dtype)
+    launch = kernel.moments_packed if use_packed else kernel.moments_plain
+    g = launch(xk, yk, wk, degree=degree, accum_dtype=accum_dtype,
+               compensated=compensated)
+    m1 = degree + 1
+    out = Moments(gram=g[:, :m1, :m1], vty=g[:, :m1, m1], yty=g[:, m1, m1],
+                  count=count, weight_sum=weight_sum)
+    if flat:
+        out = Moments(*(getattr(out, f)[0] for f in
+                        ("gram", "vty", "yty", "count", "weight_sum")))
+    return out
+
+
+def fused_report_sums(x, y, coeffs, *, weights=None,
+                      accum_dtype=torch.float32,
+                      device=None) -> dict[str, torch.Tensor]:
+    """One-pass evaluation/residual sums for ``core.fit_report_streamed``.
+
+    x, y: (..., n); coeffs: (..., m+1) monomial coefficients in the same
+    (already domain-mapped) x.  Returns (...,)-shaped ``sw, sy, syy, sf,
+    sff, syf, sse`` — Σw, Σwy, Σwy², Σwf, Σwf², Σwyf, Σw(y-f)²."""
+    dev = resolve_device(device)
+    x = as_tensor(x, dev)
+    y = as_tensor(y, dev)
+    coeffs = as_tensor(coeffs, dev)
+    if accum_dtype is None:
+        accum_dtype = torch.float32
+    degree = coeffs.shape[-1] - 1
+    if degree + 1 > kernel.K_PAD:
+        raise ValueError(f"degree {degree} too large for K_PAD={kernel.K_PAD}")
+    batch = tuple(x.shape[:-1])
+    n = x.shape[-1]
+    xb = x.reshape(-1, n)
+    yb = y.reshape(-1, n)
+    b = xb.shape[0]
+    wb = (None if weights is None
+          else torch.broadcast_to(as_tensor(weights, dev), x.shape)
+          .reshape(-1, n))
+    cb = torch.broadcast_to(coeffs, batch + coeffs.shape[-1:]).reshape(b, -1)
+    xk, yk, wk = _kernel_inputs(xb, yb, wb, accum_dtype)
+    sums = kernel.fused_report(xk, yk, wk, cb.to(accum_dtype).contiguous(),
+                               accum_dtype=accum_dtype)
+    return {name: sums[:, j].reshape(batch)
+            for j, name in enumerate(kernel.REPORT_NAMES)}

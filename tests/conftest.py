@@ -44,6 +44,10 @@ def pytest_configure(config):
         "markers",
         "no_recompile: with REPRO_RECOMPILE_TRIPWIRE=1, fail this test if "
         "it triggers any XLA executable compile")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (a CUDA kernel has no CPU mode); skips "
+        "without one")
 
 
 @pytest.fixture(autouse=True)

@@ -8,8 +8,10 @@ from repro_torch.api.spec import (FitSpec, FitResult, IRLSOptions,
                                   LSPIAOptions, METHODS, RAW_DATA_SOLVERS)
 from repro_torch.api.executors import fit, spec_from_legacy
 from repro_torch.engine.plan import NumericsPolicy
+from repro_torch.select.sweep import DegreeSearch
 
 __all__ = [
     "FitSpec", "FitResult", "IRLSOptions", "LSPIAOptions", "METHODS",
     "RAW_DATA_SOLVERS", "fit", "spec_from_legacy", "NumericsPolicy",
+    "DegreeSearch",
 ]

@@ -3,14 +3,17 @@
 ``FitSpec.plan``, so path and numerics selection stay in one place."""
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch import engine as engine_lib
-from repro_torch.api.spec import (DEGREE_SEARCH_TODO, FitResult, FitSpec,
-                                  RAW_DATA_SOLVERS)
+from repro_torch import select as select_lib
+from repro_torch.api.spec import FitResult, FitSpec, RAW_DATA_SOLVERS
 from repro_torch.core import basis as basis_lib
 from repro_torch.core import fit as fit_lib
 from repro_torch.core import moments as moments_lib
+from repro_torch.core import robust as robust_lib
 from repro_torch.core import solve as solve_lib
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.engine import plan as plan_lib
@@ -29,7 +32,7 @@ def spec_from_legacy(degree, *, method: str | None = None,
         if degree != "auto":
             raise ValueError(f"degree={degree!r}; expected an int, 'auto', "
                              "or a DegreeSearch")
-        raise NotImplementedError(DEGREE_SEARCH_TODO)
+        degree = select_lib.DegreeSearch()
     if method is not None:
         solver = method
     meth = "lse"
@@ -92,18 +95,61 @@ def _fit_lse_fixed(x: torch.Tensor, y: torch.Tensor,
     return poly, fit_lib.report_from_moments(m, poly.coeffs)
 
 
+def _fit_search(x: torch.Tensor, y: torch.Tensor,
+                weights: torch.Tensor | None, spec: FitSpec) -> FitResult:
+    """DegreeSearch specs: one-pass selection (the winning degree is read
+    back to slice the coefficients).  Under ``method="irls"`` the robust
+    weights come first, from IRLS at the max candidate degree, and the
+    one-pass weighted ladder rides on them."""
+    ds = spec.degree
+    iterations = converged = None
+    weights = _decay_weights(x, weights, spec.decay)
+    if spec.method == "irls":
+        fixed = dataclasses.replace(spec, degree=ds.max_degree, decay=1.0)
+        rfit, weights = robust_lib.irls_fit(x, y, weights, fixed)
+        iterations, converged = rfit.iterations, rfit.converged
+    pol = spec.numerics
+    solver = pol.solver if pol.solver != "auto" else ds.solver
+    dom = spec.domain_or(None, dtype=x.dtype, device=x.device)
+    if dom is not None:
+        xs = dom.apply(x)
+        normalize_arg: bool | None = False
+    else:
+        xs = x
+        normalize_arg = True if pol.normalize else None
+    sel = select_lib.select_degree(
+        xs, y, ds.max_degree, folds=ds.folds, criterion=ds.criterion,
+        weights=weights, basis=spec.basis, normalize=normalize_arg,
+        engine=spec.engine, solver=solver, fallback=ds.fallback,
+        cond_cap=ds.cond_cap, accum_dtype=pol.accum_dtype,
+        ridge=spec.ridge, device=x.device)
+    poly = sel.poly
+    if dom is not None:
+        poly = dataclasses.replace(poly, domain_shift=dom.shift,
+                                   domain_scale=dom.scale)
+        sel = dataclasses.replace(sel, poly=poly)
+    return FitResult(poly=poly, selection=sel, iterations=iterations,
+                     converged=converged)
+
+
 def fit(x, y, spec: FitSpec | None = None, *, weights=None,
         device=None) -> FitResult:
-    """Executor 1: one eager call.  ``device=None`` means CUDA (raises
-    without it); the tests pass ``device="cpu"``."""
+    """Executor 1: one eager call, any spec but LSPIA's.  ``device=None``
+    means CUDA (raises without it); the tests pass ``device="cpu"``."""
     spec = FitSpec() if spec is None else spec
-    if spec.method != "lse":
+    if spec.method == "lspia":
         raise NotImplementedError(
-            f"method={spec.method!r} is not ported yet: ROADMAP Queue 1 "
-            "item 8 (core/robust.py and core/lspia.py)")
+            "method='lspia' is not ported yet: ROADMAP Queue 1 item 8 "
+            "(core/lspia.py)")
     dev = resolve_device(device)
     x = as_tensor(x, dev)
     y = as_tensor(y, dev)
     weights = None if weights is None else as_tensor(weights, dev)
+    if spec.is_search:
+        return _fit_search(x, y, weights, spec)
+    if spec.method == "irls":
+        rfit, _ = robust_lib.irls_fit(x, y, weights, spec)
+        return FitResult(poly=rfit.poly, iterations=rfit.iterations,
+                         converged=rfit.converged)
     poly, rep = _fit_lse_fixed(x, y, weights, spec)
     return FitResult(poly=poly, report=rep)

@@ -1,10 +1,10 @@
 """FitSpec — one declarative, validated description of a fit (port of
 ``repro.api.spec``).
 
-This slice executes fixed-degree ``method="lse"`` specs through
-``api.fit``.  Degree search (ROADMAP Queue 1 item 7) and the IRLS / LSPIA
-methods (item 8) are later slices: their options are carried as data and
-validated here, and executing them raises ``NotImplementedError``.
+``api.fit`` executes fixed-degree and ``DegreeSearch`` specs with
+``method="lse"`` or ``"irls"``.  LSPIA (ROADMAP Queue 1 item 8) is a
+later slice: its options are carried as data and validated here, and
+executing it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import basis as basis_lib
 from repro_torch.engine import plan as plan_lib
+from repro_torch.select.sweep import DegreeSearch, Selection
 
 METHODS = ("lse", "irls", "lspia")
 _LOSSES = ("huber", "tukey")
@@ -22,9 +23,6 @@ _LOSSES = ("huber", "tukey")
 # solver spellings that need the raw data (no moment-space equivalent):
 # valid in a FitSpec consumed by the eager executor only.
 RAW_DATA_SOLVERS = ("qr_vandermonde",)
-
-DEGREE_SEARCH_TODO = ("degree search (degree='auto' / DegreeSearch) is not "
-                      "ported yet: ROADMAP Queue 1 item 7 (select/)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,14 +83,16 @@ def _as_domain_tuple(domain) -> tuple[float, float] | None:
 class FitSpec:
     """The whole fitting question, validated once, hashable.
 
-    degree: an int (fixed-degree fit).  basis: "monomial" | "chebyshev".
+    degree: an int (fixed-degree fit) or a ``select.DegreeSearch`` (one-pass
+    selection over the ladder 0..max_degree).  basis: "monomial" |
+    "chebyshev".
     method: "lse" | "irls" | "lspia".  domain: None (the numerics policy
     decides) or a pinned ``(shift, scale)`` map.  numerics: the solver /
     fallback / accumulation policy.  decay: exponential forgetting
     γ ∈ (0, 1].  ridge: λI added to the Gram at solve time.  engine: the
     moment-accumulation path, resolved by ``engine.plan_fit``."""
 
-    degree: int = 3
+    degree: int | DegreeSearch = 3
     basis: str = basis_lib.MONOMIAL
     method: str = "lse"
     irls: IRLSOptions = IRLSOptions()
@@ -114,12 +114,23 @@ class FitSpec:
             raise ValueError(f"engine={self.engine!r}; expected one of "
                              f"{plan_lib.ENGINES}")
         object.__setattr__(self, "domain", _as_domain_tuple(self.domain))
-        if isinstance(self.degree, str) or hasattr(self.degree, "max_degree"):
-            raise NotImplementedError(DEGREE_SEARCH_TODO)
-        degree = int(self.degree)
-        if degree < 0:
-            raise ValueError(f"degree must be >= 0, got {degree}")
-        object.__setattr__(self, "degree", degree)
+        if isinstance(self.degree, DegreeSearch):
+            if self.degree.max_degree < 0:
+                raise ValueError("DegreeSearch.max_degree must be >= 0")
+            if self.method == "lspia":
+                raise ValueError(
+                    "method='lspia' cannot run a DegreeSearch: the degree "
+                    "ladder lives in the moment state, which LSPIA never "
+                    "forms; fit per degree or use method='lse'/'irls'")
+            if self.numerics.solver in RAW_DATA_SOLVERS:
+                raise ValueError(
+                    f"solver={self.numerics.solver!r} has no moment-space "
+                    "ladder and cannot drive a DegreeSearch")
+        else:
+            degree = int(self.degree)
+            if degree < 0:
+                raise ValueError(f"degree must be >= 0, got {degree}")
+            object.__setattr__(self, "degree", degree)
         sol = self.numerics.solver
         if sol == "lspia":
             raise ValueError("spell the iterative method as "
@@ -147,8 +158,18 @@ class FitSpec:
                 f"engine='reference' or 'auto' for basis={self.basis!r}")
 
     @property
+    def is_search(self) -> bool:
+        return isinstance(self.degree, DegreeSearch)
+
+    @property
     def max_degree(self) -> int:
-        return int(self.degree)
+        """The accumulation degree: the fixed degree, or the search's max."""
+        return (self.degree.max_degree if self.is_search
+                else int(self.degree))
+
+    @property
+    def folds(self) -> int:
+        return self.degree.folds if self.is_search else 0
 
     def domain_or(self, default: basis_lib.Domain | None = None,
                   dtype=torch.float32, device=None):
@@ -178,11 +199,16 @@ class FitSpec:
 @dataclasses.dataclass(frozen=True)
 class FitResult:
     """What ``api.fit`` hands back: ``poly`` (ready to evaluate, carrying
-    its basis and Domain) and ``report``, the moment-space quality report
-    (SSE/R/count)."""
+    its basis and Domain); ``report``, the moment-space quality report
+    (SSE/R/count) of a fixed-degree LSE fit; ``selection``, the scored
+    ladder of a DegreeSearch; ``iterations`` / ``converged``, the loop
+    record of IRLS."""
 
     poly: Any
     report: Any = None
+    selection: Selection | None = None
+    iterations: Any = None
+    converged: Any = None
 
     @property
     def coeffs(self):
@@ -191,3 +217,7 @@ class FitResult:
     @property
     def diagnostics(self):
         return self.poly.diagnostics
+
+    @property
+    def best_degree(self):
+        return None if self.selection is None else self.selection.best_degree

@@ -17,6 +17,20 @@ from repro_torch.core.fit import (Polynomial, FitReport, StreamedFitReport,
                                   fit_from_moments, fit_report,
                                   fit_report_streamed, sse_from_moments,
                                   report_from_moments)
+from repro_torch.core.robust import robust_polyfit, RobustFit, HUBER, TUKEY
+
+# repro_torch.select builds on these modules, so its names are re-exported
+# lazily: an eager import here would be circular
+_SELECT_EXPORTS = ("select_degree", "DegreeSearch", "Selection",
+                   "SweepResult", "sweep_from_moments")
+
+
+def __getattr__(name):
+    if name in _SELECT_EXPORTS:
+        import repro_torch.select as _select
+        return getattr(_select, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "Domain", "vandermonde", "evaluate", "MONOMIAL", "CHEBYSHEV",
@@ -28,4 +42,7 @@ __all__ = [
     "Polynomial", "FitReport", "StreamedFitReport", "FitDiagnostics",
     "polyfit", "polyfit_qr", "fit_from_moments", "fit_report",
     "fit_report_streamed", "sse_from_moments", "report_from_moments",
+    "robust_polyfit", "RobustFit", "HUBER", "TUKEY",
+    "select_degree", "DegreeSearch", "Selection", "SweepResult",
+    "sweep_from_moments",
 ]

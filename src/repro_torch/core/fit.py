@@ -103,8 +103,10 @@ def polyfit(x, y, degree, *, weights=None,
             fallback: str | None = "svd",
             cond_cap: float | None = None,
             device=None) -> Polynomial:
-    """The paper's pipeline; a shim over ``api.fit``.  ``device=None``
-    means CUDA; pass ``device="cpu"`` for the plain PyTorch path."""
+    """The paper's pipeline; a shim over ``api.fit``.  ``degree="auto"``
+    or ``degree=DegreeSearch(...)`` picks the degree from the same single
+    moment pass (``select/``).  ``device=None`` means CUDA; pass
+    ``device="cpu"`` for the plain PyTorch path."""
     from repro_torch import api
     spec = api.spec_from_legacy(
         degree, method=method, basis=basis, normalize=normalize,

@@ -169,11 +169,15 @@ def plan_fit(shape: tuple[int, ...], degree: int, *,
     """Resolve an execution path + numerics policy from static problem
     facts.  ``device`` is where the data lives; ``backend`` ("cuda" or
     "cpu") overrides its type for what-if planning.  ``workload`` is
-    "moments" or "report" (the fused evaluate/residual pass, which monomial
-    fits take on every backend, as in the reference)."""
+    "moments", "select" (the degree-sweep accumulation of ``select/``,
+    routed exactly like "moments": its fold axis is an ordinary series
+    batch, so the packed kernel takes it on CUDA; the numerics are
+    resolved at the MAX candidate degree, where conditioning is worst) or
+    "report" (the fused evaluate/residual pass, which monomial fits take
+    on every backend, as in the reference)."""
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r}; expected one of {ENGINES}")
-    if workload not in ("moments", "report"):
+    if workload not in ("moments", "select", "report"):
         raise ValueError(f"workload={workload!r}")
     if not shape:
         raise ValueError("x/y must have at least one (series) axis")

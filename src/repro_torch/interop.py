@@ -19,6 +19,7 @@ from repro_torch.core.fit import Polynomial
 from repro_torch.core.moments import Moments
 from repro_torch.device import resolve_device
 from repro_torch.engine.plan import NumericsPolicy
+from repro_torch.select.sweep import DegreeSearch
 
 MOMENT_FIELDS = ("gram", "vty", "yty", "count", "weight_sum")
 
@@ -53,15 +54,19 @@ def polynomial(ref, device=None) -> Polynomial:
 
 
 def fit_spec(ref) -> FitSpec:
-    """The reference FitSpec's fields as the port's FitSpec (fixed-degree
-    specs only: degree search is a later slice)."""
+    """The reference FitSpec's fields as the port's FitSpec (a reference
+    DegreeSearch becomes the port's, field by field)."""
     pol = ref.numerics
+    degree = ref.degree
+    if hasattr(degree, "max_degree"):
+        degree = DegreeSearch(**{f.name: getattr(degree, f.name)
+                                 for f in dataclasses.fields(DegreeSearch)})
     numerics = NumericsPolicy(
         accum_dtype=torch_dtype(pol.accum_dtype), compensated=pol.compensated,
         normalize=pol.normalize, solver=pol.solver, fallback=pol.fallback,
         cond_cap=pol.cond_cap)
     return FitSpec(
-        degree=ref.degree, basis=ref.basis, method=ref.method,
+        degree=degree, basis=ref.basis, method=ref.method,
         irls=IRLSOptions(**{f.name: getattr(ref.irls, f.name)
                             for f in dataclasses.fields(IRLSOptions)}),
         lspia=LSPIAOptions(**{f.name: getattr(ref.lspia, f.name)

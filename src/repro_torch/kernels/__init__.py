@@ -2,6 +2,7 @@
 
 The paper's own contribution was a CUDA moment kernel; the JAX reference
 re-expressed it as Pallas TPU kernels, and this package takes it back to
-the GPU: ``csrc/moments.cu`` (built by ``build.py``), launched by
-``moments.py``, wrapped by ``ops.py``, with the plain PyTorch oracles in
+the GPU: ``csrc/moments.cu`` and ``csrc/moments_ring.cu`` (built by
+``build.py``), launched by ``moments.py``, wrapped by ``ops.py``, with the
+ring's block size tuned by ``tune.py`` and the plain PyTorch oracles in
 ``ref.py``."""

@@ -1,11 +1,12 @@
 """Build the CUDA kernels from the repo's sources at first use.
 
-``nvcc`` compiles ``kernels/csrc/*.cu`` into a shared library with a plain
-C interface, which ``ctypes`` loads (no ninja, no PyTorch headers, so the
+``nvcc`` compiles each ``kernels/csrc/*.cu`` into an object, all sources at
+once in parallel, and links them into a shared library with a plain C
+interface, which ``ctypes`` loads (no ninja, no PyTorch headers, so the
 build takes seconds).  The library lands in ``kernels/_build/`` (listed in
-``.gitignore``) under a name keyed by a hash of the sources and the flags,
-so an edit rebuilds.  A failed build raises; nothing gives way to the
-plain versions on CUDA.
+``.gitignore``) under a name keyed by a hash of the sources, the shared
+headers and the flags, so an edit rebuilds.  A failed build raises;
+nothing gives way to the plain versions on CUDA.
 """
 from __future__ import annotations
 
@@ -23,11 +24,15 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # -O3 for sm_90a (keep the "a": wgmma/setmaxnreg exist only there); never
 # --use_fast_math, which would reassociate the Kahan error terms away
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -49,7 +54,7 @@ def nvcc_path() -> str:
 
 def build_key() -> str:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -60,42 +65,78 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_kernels_{build_key()}.so"
 
 
-def nvcc_command(out: Path, nvcc: str = "nvcc") -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def compile_command(src: Path, obj: Path, nvcc: str = "nvcc") -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(objs: list[Path], out: Path,
+                 nvcc: str = "nvcc") -> list[str]:
+    return [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+            "-o", str(out), *map(str, objs)]
 
 
 def build() -> tuple[Path, str]:
-    """Compile the library if its keyed file is missing.  Returns the path
-    and the compiler's report (``-Xptxas=-v``: registers, shared memory and
+    """Compile the library if its keyed file is missing: one ``nvcc -c``
+    per source, all started together, then one link.  Returns the path and
+    the compiler's report (``-Xptxas=-v``: registers, shared memory and
     spills per kernel), also kept beside the library as ``.log``."""
     lib = library_path()
     log = lib.with_suffix(".log")
     if lib.exists():
         return lib, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [subprocess.Popen(compile_command(src, obj, nvcc),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    outs = [p.communicate()[0] for p in procs]
+    report = "".join(outs)
+    failed = [(src.name, p.returncode, out)
+              for src, p, out in zip(sources(), procs, outs) if p.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({rc}):\n{out}" for name, rc, out in failed))
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(tmp, nvcc_path()), capture_output=True,
+    proc = subprocess.run(link_command(objs, tmp, nvcc), capture_output=True,
                           text=True)
-    report = proc.stdout + proc.stderr
+    report += proc.stdout + proc.stderr
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{report}")
     log.write_text(report)
     os.replace(tmp, lib)
     return lib, report
 
 
+def load(path) -> ctypes.CDLL:
+    """Load a kernel library and declare its exported functions' argument
+    and result types (a library built from an earlier checkout may lack
+    the newer ones)."""
+    lib = ctypes.CDLL(str(path))
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    signatures = {
+        "repro_moments": ([i32, i32, i32, i32, p, p, p, i64, i64, i32, i32,
+                           p, p, p, p], i32),
+        "repro_moments_ring": ([i32, i32, i32, p, p, p, i64, i64, i32, i32,
+                                i32, i32, p, p, p, p], i32),
+        "repro_ring_smem_bytes": ([i32, i32, i32, i32, i32, i32], i64),
+        "repro_report": ([i32, i32, p, p, p, p, i64, i64, i32, i32, p, p, p],
+                         i32),
+        "repro_error_string": ([i32], ctypes.c_char_p),
+    }
+    for name, (args, res) in signatures.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = args, res
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use, with every exported
-    function's argument and result types declared."""
-    lib = ctypes.CDLL(str(build()[0]))
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.repro_moments.argtypes = [i32, i32, i32, i32, p, p, p, i64, i64, i32,
-                                  i32, p, p, p, p]
-    lib.repro_moments.restype = i32
-    lib.repro_report.argtypes = [i32, i32, p, p, p, p, i64, i64, i32, i32, p,
-                                 p, p]
-    lib.repro_report.restype = i32
-    lib.repro_error_string.argtypes = [i32]
-    lib.repro_error_string.restype = ctypes.c_char_p
-    return lib
+    """The loaded kernel library of this checkout, built on first use."""
+    return load(build()[0])

@@ -5,6 +5,9 @@
 //   moments_plain   <- _moments_kernel via moments_extended (one series)
 //   moments_packed  <- _packed_moments_kernel via moments_packed_extended
 //   fused_report    <- _fused_report_kernel via fused_report_sums
+// (the multi-buffered _packed_moments_db_kernel is in moments_ring.cu; the
+// moment kernels' loops and arithmetic, which both files instantiate, are
+// in moments_common.cuh)
 //
 // What they compute.  For each series b with points (x_i, y_i, w_i):
 //   S_k = sum w x^k      (k = 0..2m)     power sums (the paper's CUDA scheme)
@@ -37,261 +40,11 @@
 // per-thread loop, in the warp/CTA reductions and in the cross-split pass.
 // Never build with --use_fast_math: it would reassociate the error terms
 // away.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "moments_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDegree = 126;          // degree + 2 <= 128
-constexpr int kMaxPow = 2 * kMaxDegree + 1;
-constexpr int kTile = 16;                // points staged per shared-memory tile
 constexpr int kReportSums = 7;
-
-template <typename TAcc, typename TIn>
-__device__ __forceinline__ TAcc cvt(TIn v) { return static_cast<TAcc>(v); }
-template <>
-__device__ __forceinline__ float cvt<float, __nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <>
-__device__ __forceinline__ double cvt<double, __nv_bfloat16>(__nv_bfloat16 v) {
-  return static_cast<double>(__bfloat162float(v));
-}
-
-// One accumulator; with KAHAN the value is hi + lo.
-template <typename T, bool KAHAN>
-struct Acc {
-  T hi, lo;
-  __device__ __forceinline__ void zero() { hi = T(0); lo = T(0); }
-  __device__ __forceinline__ void add(T v) {
-    if constexpr (KAHAN) {
-      T y = v + lo;
-      T t = hi + y;
-      lo = y - (t - hi);
-      hi = t;
-    } else {
-      hi += v;
-    }
-  }
-  // add another (hi, lo) pair: two-sum of the high parts, then renormalize
-  __device__ __forceinline__ void merge(T h, T l) {
-    if constexpr (KAHAN) {
-      T s = hi + h;
-      T bb = s - hi;
-      T err = (hi - (s - bb)) + (h - bb);
-      T low = lo + l + err;
-      hi = s + low;
-      lo = low - (hi - s);
-    } else {
-      hi += h;
-    }
-  }
-  __device__ __forceinline__ T value() const {
-    if constexpr (KAHAN) { return hi + lo; } else { return hi; }
-  }
-};
-
-template <typename T, bool KAHAN>
-__device__ __forceinline__ void warp_reduce(Acc<T, KAHAN>& a) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    T h = __shfl_down_sync(0xffffffffu, a.hi, off);
-    T l = T(0);
-    if constexpr (KAHAN) l = __shfl_down_sync(0xffffffffu, a.lo, off);
-    a.merge(h, l);
-  }
-}
-
-// partial-sum slot of the register layout -> slot of the output layout
-__device__ __forceinline__ int out_slot(int k, int maxd, int m) {
-  if (k <= 2 * maxd) return k;                       // S_k
-  if (k <= 3 * maxd + 1) return 2 * m + 1 + (k - 2 * maxd - 1);  // T_k
-  return 3 * m + 2;                                  // U
-}
-
-__device__ __forceinline__ bool slot_live(int k, int maxd, int m) {
-  if (k <= 2 * maxd) return k <= 2 * m;
-  if (k <= 3 * maxd + 1) return (k - 2 * maxd - 1) <= m;
-  return true;
-}
-
-// ---------------------------------------------------------------------------
-// Register path: degree m <= MAXD, G threads per task (256: one CTA per
-// task; 32: one warp per task, eight tasks per CTA).
-template <typename TIn, typename TAcc, bool KAHAN, int MAXD, int G>
-__global__ void __launch_bounds__(kThreads)
-moments_reg_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
-                   const TAcc* __restrict__ w, int64_t B, int64_t n, int m,
-                   int S, TAcc* __restrict__ part_hi,
-                   TAcc* __restrict__ part_lo) {
-  constexpr int NS = 3 * MAXD + 3;
-  const int lane = threadIdx.x % G;
-  const int64_t task = static_cast<int64_t>(blockIdx.x) * (kThreads / G) +
-                       threadIdx.x / G;
-  if (task >= B * S) return;  // whole group leaves together (G == 32 only)
-  const int64_t b = task / S;
-  const int64_t s = task % S;
-  const int64_t chunk = (n + S - 1) / S;
-  const int64_t lo_i = s * chunk;
-  const int64_t hi_i = lo_i + chunk < n ? lo_i + chunk : n;
-  const TIn* xb = x + b * n;
-  const TIn* yb = y + b * n;
-  const TAcc* wb = w ? w + b * n : nullptr;
-
-  Acc<TAcc, KAHAN> a[NS];
-#pragma unroll
-  for (int k = 0; k < NS; ++k) a[k].zero();
-
-  for (int64_t i = lo_i + lane; i < hi_i; i += G) {
-    const TAcc xv = cvt<TAcc>(xb[i]);
-    const TAcc yv = cvt<TAcc>(yb[i]);
-    const TAcc wv = wb ? wb[i] : TAcc(1);
-    TAcc p = wv;
-#pragma unroll
-    for (int k = 0; k <= 2 * MAXD; ++k) {
-      if (k <= 2 * m) {
-        a[k].add(p);
-        if (k <= MAXD && k <= m) a[2 * MAXD + 1 + k].add(p * yv);
-        p *= xv;
-      }
-    }
-    a[NS - 1].add(wv * yv * yv);
-  }
-
-  const int nsum = 3 * m + 3;
-  TAcc* oh = part_hi + task * nsum;
-  TAcc* ol = KAHAN ? part_lo + task * nsum : nullptr;
-  if constexpr (G == 32) {
-#pragma unroll
-    for (int k = 0; k < NS; ++k) {
-      warp_reduce(a[k]);
-      if (lane == 0 && slot_live(k, MAXD, m)) {
-        oh[out_slot(k, MAXD, m)] = a[k].hi;
-        if (KAHAN) ol[out_slot(k, MAXD, m)] = a[k].lo;
-      }
-    }
-  } else {
-    __shared__ TAcc sh_hi[kWarps][NS];
-    __shared__ TAcc sh_lo[kWarps][NS];
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int k = 0; k < NS; ++k) {
-      warp_reduce(a[k]);
-      if (threadIdx.x % 32 == 0) {
-        sh_hi[warp][k] = a[k].hi;
-        sh_lo[warp][k] = a[k].lo;
-      }
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < NS; k += kThreads) {
-      if (!slot_live(k, MAXD, m)) continue;
-      Acc<TAcc, KAHAN> t;
-      t.zero();
-      for (int v = 0; v < kWarps; ++v) t.merge(sh_hi[v][k], sh_lo[v][k]);
-      oh[out_slot(k, MAXD, m)] = t.hi;
-      if (KAHAN) ol[out_slot(k, MAXD, m)] = t.lo;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Shared-memory path for any degree up to 126: one CTA per task.  Sixteen
-// threads build the weighted power ladder of a tile of points into shared
-// memory; thread t then owns sums t and t + 256 of the 3m+3.
-template <typename TIn, typename TAcc, bool KAHAN>
-__global__ void __launch_bounds__(kThreads)
-moments_smem_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
-                    const TAcc* __restrict__ w, int64_t B, int64_t n, int m,
-                    int S, TAcc* __restrict__ part_hi,
-                    TAcc* __restrict__ part_lo) {
-  __shared__ TAcc pw[kTile][kMaxPow + 1];
-  __shared__ TAcc yt[kTile];
-  const int64_t task = blockIdx.x;
-  const int64_t b = task / S;
-  const int64_t s = task % S;
-  const int64_t chunk = (n + S - 1) / S;
-  const int64_t lo_i = s * chunk;
-  const int64_t hi_i = lo_i + chunk < n ? lo_i + chunk : n;
-  const TIn* xb = x + b * n;
-  const TIn* yb = y + b * n;
-  const TAcc* wb = w ? w + b * n : nullptr;
-  const int npow = 2 * m + 1;
-  const int nsum = 3 * m + 3;
-
-  Acc<TAcc, KAHAN> a[2];
-  a[0].zero();
-  a[1].zero();
-  for (int64_t base = lo_i; base < hi_i; base += kTile) {
-    const int t = threadIdx.x;
-    if (t < kTile) {
-      const int64_t i = base + t;
-      TAcc xv = TAcc(0), yv = TAcc(0), p = TAcc(0);
-      if (i < hi_i) {
-        xv = cvt<TAcc>(xb[i]);
-        yv = cvt<TAcc>(yb[i]);
-        p = wb ? wb[i] : TAcc(1);
-      }
-      for (int k = 0; k < npow; ++k) {
-        pw[t][k] = p;
-        p *= xv;
-      }
-      yt[t] = yv;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int slot = threadIdx.x + q * kThreads;
-      TAcc v = TAcc(0);
-      if (slot < npow) {
-        for (int u = 0; u < kTile; ++u) v += pw[u][slot];
-      } else if (slot < npow + m + 1) {
-        const int k = slot - npow;
-        for (int u = 0; u < kTile; ++u) v += pw[u][k] * yt[u];
-      } else if (slot < nsum) {
-        for (int u = 0; u < kTile; ++u) v += pw[u][0] * yt[u] * yt[u];
-      }
-      a[q].add(v);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int slot = threadIdx.x + q * kThreads;
-    if (slot < nsum) {
-      part_hi[task * nsum + slot] = a[q].hi;
-      if (KAHAN) part_lo[task * nsum + slot] = a[q].lo;
-    }
-  }
-}
-
-// Sum the partials over the S splits in order and assemble the K x K Gram.
-template <typename TAcc, bool KAHAN>
-__global__ void moments_finalize(const TAcc* __restrict__ part_hi,
-                                 const TAcc* __restrict__ part_lo, int64_t B,
-                                 int m, int S, TAcc* __restrict__ out) {
-  const int K = m + 2;
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= B * K * K) return;
-  const int64_t b = idx / (K * K);
-  const int r = static_cast<int>(idx % (K * K));
-  const int j = r / K, k = r % K;
-  int slot;
-  if (j <= m && k <= m) slot = j + k;
-  else if (j == m + 1 && k == m + 1) slot = 3 * m + 2;
-  else slot = 2 * m + 1 + (j == m + 1 ? k : j);
-  const int nsum = 3 * m + 3;
-  Acc<TAcc, KAHAN> a;
-  a.zero();
-  for (int s = 0; s < S; ++s) {
-    const int64_t at = (b * S + s) * nsum + slot;
-    a.merge(part_hi[at], KAHAN ? part_lo[at] : TAcc(0));
-  }
-  out[idx] = a.value();
-}
 
 // ---------------------------------------------------------------------------
 // Fused report: Horner f, e = y - f and the seven sums per task, no (B, n)
@@ -361,22 +114,19 @@ __global__ void report_finalize(const TAcc* __restrict__ part, int64_t B,
 }
 
 // ---------------------------------------------------------------------------
-inline unsigned int blocks_for(int64_t items, int per_block) {
-  return static_cast<unsigned int>((items + per_block - 1) / per_block);
-}
-
 template <typename TIn, typename TAcc, bool KAHAN, int MAXD>
 void launch_reg(int layout, const TIn* x, const TIn* y, const TAcc* w,
                 int64_t B, int64_t n, int m, int S, TAcc* ph, TAcc* pl,
                 cudaStream_t st) {
   const int64_t tasks = B * S;
   if (layout == 0) {
-    moments_reg_kernel<TIn, TAcc, KAHAN, MAXD, kThreads>
-        <<<blocks_for(tasks, 1), kThreads, 0, st>>>(x, y, w, B, n, m, S, ph, pl);
+    moments_reg_kernel<DirectLoads, TIn, TAcc, KAHAN, MAXD, kThreads>
+        <<<blocks_for(tasks, 1), kThreads, 0, st>>>(x, y, w, B, n, m, S,
+                                                    LoadArgs{}, ph, pl);
   } else {
-    moments_reg_kernel<TIn, TAcc, KAHAN, MAXD, 32>
-        <<<blocks_for(tasks, kWarps), kThreads, 0, st>>>(x, y, w, B, n, m, S,
-                                                          ph, pl);
+    moments_reg_kernel<DirectLoads, TIn, TAcc, KAHAN, MAXD, 32>
+        <<<blocks_for(tasks, kWarps), kThreads, 0, st>>>(
+            x, y, w, B, n, m, S, LoadArgs{}, ph, pl);
   }
 }
 
@@ -393,19 +143,18 @@ cudaError_t launch_moments(int layout, const void* xv, const void* yv,
     launch_reg<TIn, TAcc, KAHAN, 3>(layout, x, y, w, B, n, m, S, ph, pl, st);
   } else if (m <= 7) {
     launch_reg<TIn, TAcc, KAHAN, 7>(layout, x, y, w, B, n, m, S, ph, pl, st);
-  } else if (m <= 14) {
-    launch_reg<TIn, TAcc, KAHAN, 14>(layout, x, y, w, B, n, m, S, ph, pl, st);
+  } else if (m <= kRegMaxDegree) {
+    launch_reg<TIn, TAcc, KAHAN, kRegMaxDegree>(layout, x, y, w, B, n, m, S,
+                                                ph, pl, st);
   } else {
-    moments_smem_kernel<TIn, TAcc, KAHAN>
-        <<<blocks_for(B * S, 1), kThreads, 0, st>>>(x, y, w, B, n, m, S, ph, pl);
+    moments_smem_kernel<DirectLoads, TIn, TAcc, KAHAN>
+        <<<blocks_for(B * S, 1), kThreads, 0, st>>>(x, y, w, B, n, m, S,
+                                                    LoadArgs{}, ph, pl);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int K = m + 2;
-  moments_finalize<TAcc, KAHAN><<<blocks_for(B * K * K, kThreads), kThreads, 0,
-                                  st>>>(ph, pl, B, m, S,
-                                        static_cast<TAcc*>(outv));
-  return cudaGetLastError();
+  return launch_finalize<TAcc, KAHAN>(ph, pl, B, m, S,
+                                      static_cast<TAcc*>(outv), st);
 }
 
 template <typename TIn, typename TAcc>

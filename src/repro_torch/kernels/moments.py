@@ -3,20 +3,33 @@ PyTorch versions beside them.
 
 Each launcher takes (B, n) inputs and, for a CUDA tensor, checks shapes,
 dtypes, contiguity and device, allocates its outputs and split partials,
-launches the kernel of ``csrc/moments.cu`` on the current stream, raises if
+launches its kernel (``csrc/*.cu``) on the current stream, raises if
 the launch failed, and adds one to its launch count.  For a CPU tensor it
 returns its plain version instead; the plain versions are also the oracles
 the card is checked against.
 
-=================  ==========================================================
-launcher           replaces (``repro/kernels/moments.py``)
-=================  ==========================================================
-``moments_plain``  ``_moments_kernel`` via ``moments_extended`` (:133, :296)
-``moments_packed`` ``_packed_moments_kernel`` via ``moments_packed_extended``
-                   with ``nbuf=0`` (:185, :327)
-``fused_report``   ``_fused_report_kernel`` via ``fused_report_sums``
-                   (:251, :392)
-=================  ==========================================================
+=======================  ====================================================
+launcher                 replaces (``repro/kernels/moments.py``)
+=======================  ====================================================
+``moments_plain``        ``_moments_kernel`` via ``moments_extended``
+                         (:133, :296)
+``moments_packed``       ``_packed_moments_kernel`` via
+                         ``moments_packed_extended`` with ``nbuf=0``
+                         (:185, :327)
+``moments_packed_ring``  ``_packed_moments_db_kernel`` via
+                         ``moments_packed_extended`` with ``nbuf>=2``
+                         (:197, :356)
+``fused_report``         ``_fused_report_kernel`` via ``fused_report_sums``
+                         (:251, :392)
+=======================  ====================================================
+
+``moments_packed_ring`` is ``moments_packed``'s own kernel
+(``csrc/moments_common.cuh``) instantiated with its loads streamed through
+an ``nbuf``-slot ring in shared memory by ``cp.async``
+(``csrc/moments_ring.cu``), so its output has the same bits; it is bound
+by the same bytes, and the ring's shared memory trades resident warps for
+deeper prefetch (``tune.py`` measures that trade).  Its plain version is
+``moments_block_plain``: the ring changes no arithmetic.
 
 The moment launchers return each series' K×K extended Gram (K = degree+2,
 rows and columns x⁰…xᵐ, y), not the TPU kernels' 128×128 tile: the padding
@@ -27,12 +40,15 @@ from __future__ import annotations
 import torch
 
 K_PAD = 128                   # the reference tile: degree + 2 <= 128
-# these two mirror csrc/moments.cu (its register-path dispatch and kThreads)
+# these two mirror csrc/moments_common.cuh (kRegMaxDegree, kThreads)
 REGISTER_MAX_DEGREE = 14      # above this the kernels use shared memory
 THREADS = 256                 # threads per CTA
 SERIES_PER_PACKED_CTA = THREADS // 32   # moments_packed: one warp per task
 CTAS_PER_SM = 8               # split series until the grid covers this
 MIN_SPLIT_POINTS = 4096       # never split a series finer than this
+# the ring kernels' tile of the shared-memory path (csrc: kTile, kMaxPow)
+TILE_POINTS = 16
+MAX_POWERS = 2 * (K_PAD - 2) + 1
 
 # the report sums, in the reference's SUM_* lane order
 REPORT_NAMES = ("sw", "sy", "syy", "sf", "sff", "syf", "sse")
@@ -41,7 +57,8 @@ _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _ACC_CODES = {torch.float32: 0, torch.float64: 1}
 
 # launches per kernel since the last reset (read by chip_smoke.py and tests)
-_LAUNCHES = {"moments_plain": 0, "moments_packed": 0, "fused_report": 0}
+_LAUNCHES = {"moments_plain": 0, "moments_packed": 0,
+             "moments_packed_ring": 0, "fused_report": 0}
 
 
 def reset_launch_counts() -> None:
@@ -132,8 +149,16 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _ring_blocks(n: int, s: int, block_n: int) -> int:
+    """Ring blocks of the longest (series, split) task."""
+    chunk = -(-n // s)
+    return -(-chunk // block_n)
+
+
 def _launch_moments(layout: int, name: str, x, y, w, degree: int,
-                    accum_dtype, compensated: bool):
+                    accum_dtype, compensated: bool, ring=None):
+    """Launch the moment kernel of ``layout`` (0 plain, 1 packed); with
+    ``ring=(block_n, nbuf)`` the packed layout's ring form."""
     from repro_torch.kernels import build
     _check_inputs(x, y, w, accum_dtype)
     if not 0 <= degree <= K_PAD - 2:
@@ -148,13 +173,22 @@ def _launch_moments(layout: int, name: str, x, y, w, degree: int,
     part_hi = torch.empty((b, s, nsum), dtype=accum_dtype, device=x.device)
     part_lo = torch.empty_like(part_hi) if compensated else None
     out = torch.empty((b, k, k), dtype=accum_dtype, device=x.device)
+    lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = build.library().repro_moments(
-            layout, _IN_CODES[x.dtype], _ACC_CODES[accum_dtype],
-            int(compensated), x.data_ptr(), y.data_ptr(), _ptr(w), b, n,
-            degree, s, part_hi.data_ptr(), _ptr(part_lo), out.data_ptr(),
-            stream)
+        common = (x.data_ptr(), y.data_ptr(), _ptr(w), b, n, degree, s)
+        tail = (part_hi.data_ptr(), _ptr(part_lo), out.data_ptr(), stream)
+        codes = (_IN_CODES[x.dtype], _ACC_CODES[accum_dtype],
+                 int(compensated))
+        if ring is None:
+            err = lib.repro_moments(layout, *codes, *common, *tail)
+        else:
+            block_n, nbuf = ring
+            # the reference's cap: no more slots than the task has blocks
+            blocks = _ring_blocks(n, s, block_n)
+            nbuf = min(nbuf, blocks) if blocks > 1 else 2
+            err = lib.repro_moments_ring(*codes, *common, block_n, nbuf,
+                                         *tail)
     _raise_on(err, name)
     _LAUNCHES[name] += 1
     return out
@@ -179,6 +213,29 @@ def moments_packed(x, y, w=None, *, degree: int, accum_dtype=torch.float32,
         return moments_block_plain(x, y, w, degree, accum_dtype)
     return _launch_moments(1, "moments_packed", x, y, w, degree, accum_dtype,
                            compensated)
+
+
+def _check_ring(block_n: int, nbuf: int) -> None:
+    """The ring's arguments: block_n a positive multiple of 32 (a lane
+    keeps its points), nbuf >= 2."""
+    if block_n < 32 or block_n % 32:
+        raise ValueError(f"block_n={block_n}: a positive multiple of 32")
+    if nbuf < 2:
+        raise ValueError(f"nbuf={nbuf}: the ring needs >= 2 slots")
+
+
+def moments_packed_ring(x, y, w=None, *, degree: int, block_n: int,
+                        nbuf: int, accum_dtype=torch.float32,
+                        compensated: bool = False) -> torch.Tensor:
+    """(B, K, K) extended Grams, bit-equal to ``moments_packed``, with the
+    loads streamed through an ``nbuf``-slot shared-memory ring in blocks
+    of ``block_n`` points (``nbuf`` is capped at the blocks of the longest
+    task).  On a CPU tensor: the plain version."""
+    _check_ring(block_n, nbuf)
+    if x.device.type == "cpu":
+        return moments_block_plain(x, y, w, degree, accum_dtype)
+    return _launch_moments(1, "moments_packed_ring", x, y, w, degree,
+                           accum_dtype, compensated, ring=(block_n, nbuf))
 
 
 def fused_report(x, y, w, coeffs, *, accum_dtype=torch.float32

@@ -1,7 +1,8 @@
 """Public wrappers around the moment/report kernels (port of
 ``repro.kernels.ops``).
 
-Handles batch/flat shapes, packed-vs-plain path selection, the true-count
+Handles batch shapes (any leading axes), packed-vs-plain path selection,
+the ring form of the packed kernel (``nbuf >= 2``), the true-count
 versus Σw split, and extraction of ``Moments`` from the kernels' extended
 Gram.  The kernels bound-check ragged tails themselves and treat a missing
 weight array as all ones, so no padding copy is made: the results equal
@@ -36,40 +37,60 @@ def _kernel_inputs(x, y, weights, accum_dtype):
     return x.contiguous(), y.contiguous(), w
 
 
-def moments(x, y, degree: int, *, weights=None,
+def _ring_block(degree, n, itemsize, weighted, nbuf, accum_itemsize, dev):
+    """``block_n`` for a ring call that gives none: the smallest candidate
+    that covers the series in one block (the reference's rule), else the
+    largest that fits the ring's shared memory."""
+    from repro_torch.kernels import tune
+    fit = tune.feasible_blocks(degree, nbuf=nbuf, itemsize=itemsize,
+                               weighted=weighted,
+                               accum_itemsize=accum_itemsize,
+                               budget=tune.smem_budget(dev))
+    if not fit:
+        raise ValueError(f"no ring block fits the shared memory at degree "
+                         f"{degree}, nbuf={nbuf}")
+    return next((bn for bn in fit if bn >= n), fit[-1])
+
+
+def moments(x, y, degree: int, *, weights=None, block_n: int | None = None,
             accum_dtype=torch.float32, packing: str = "auto",
             compensated: bool = False, nbuf: int = 0,
             device=None) -> Moments:
     """Kernel-backed equivalent of ``core.gram_moments``.
 
-    Accepts (n,) or (B, n) inputs of float32, bfloat16 or float64;
-    returns Moments accumulated in ``accum_dtype`` (float32 by default)
-    with matching batch shape.  ``packing`` ∈ {"auto", "packed", "plain"}
-    picks the kernel; ``compensated=True`` turns on Kahan accumulation.
-    ``device=None`` means CUDA."""
+    Accepts (..., n) inputs of float32, bfloat16 or float64 (the leading
+    axes are flattened into one series batch for the kernel and restored
+    on every field); returns Moments accumulated in ``accum_dtype``
+    (float32 by default) with the input's batch shape.  ``packing`` ∈
+    {"auto", "packed", "plain"} picks the kernel; ``compensated=True``
+    turns on Kahan accumulation.  ``nbuf >= 2`` streams the packed
+    kernel's loads through an ``nbuf``-slot shared-memory ring in blocks
+    of ``block_n`` points (pick it with ``tune.autotune_block_n``); the
+    result has the same bits as ``nbuf=0``.  With ``nbuf=0`` ``block_n``
+    is accepted and changes nothing: the grid-streamed kernels read each
+    point straight from device memory.  ``device=None`` means CUDA."""
     if packing not in ("auto", "packed", "plain"):
         raise ValueError(f"packing={packing!r}; expected 'auto', 'packed' "
                          "or 'plain'")
-    if nbuf >= 2:
-        raise NotImplementedError(
-            "nbuf >= 2 (the multi-buffered DMA ring of the TPU packed "
-            "kernel) is not ported yet: ROADMAP Queue 2 row 3")
-    if nbuf != 0:
-        raise ValueError(f"nbuf={nbuf}: 0 (grid-streamed) or >= 2")
+    if nbuf == 1 or nbuf < 0:
+        raise ValueError(f"nbuf={nbuf}: 0 (grid-streamed) or >= 2 "
+                         "(multi-buffered ring)")
     dev = resolve_device(device)
     x = as_tensor(x, dev)
     y = as_tensor(y, dev)
-    weights = None if weights is None else as_tensor(weights, dev)
     if accum_dtype is None:
         accum_dtype = torch.float32
-    flat = x.ndim == 1
-    if flat:
-        x, y = x[None], y[None]
-        if weights is not None:
-            weights = weights[None]
-    if x.ndim != 2:
-        raise ValueError("moments expects (n,) or (B, n) inputs")
-    b, n = x.shape
+    if x.ndim == 0 or y.shape != x.shape:
+        raise ValueError(f"moments expects x, y of one (..., n) shape, got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    batch = tuple(x.shape[:-1])
+    n = x.shape[-1]
+    xb = x.reshape(-1, n)
+    yb = y.reshape(-1, n)
+    b = xb.shape[0]
+    weights = (None if weights is None
+               else torch.broadcast_to(as_tensor(weights, dev), x.shape)
+               .reshape(b, n))
     count = _true_count(weights, b, n, accum_dtype, dev)
     weight_sum = (torch.full((b,), n, dtype=accum_dtype, device=dev)
                   if weights is None
@@ -81,17 +102,31 @@ def moments(x, y, degree: int, *, weights=None,
     if use_packed and pfac < 2:
         raise ValueError(f"degree {degree} leaves no room to pack "
                          f"(packing_factor={pfac}); use packing='plain'")
-    xk, yk, wk = _kernel_inputs(x, y, weights, accum_dtype)
-    launch = kernel.moments_packed if use_packed else kernel.moments_plain
-    g = launch(xk, yk, wk, degree=degree, accum_dtype=accum_dtype,
-               compensated=compensated)
+    if nbuf >= 2 and not use_packed:
+        raise ValueError("nbuf (the multi-buffered ring) is a packed-"
+                         "kernel knob; this call resolved to the plain "
+                         "layout")
+    xk, yk, wk = _kernel_inputs(xb, yb, weights, accum_dtype)
+    common = dict(degree=degree, accum_dtype=accum_dtype,
+                  compensated=compensated)
+    if nbuf >= 2:
+        if block_n is None:
+            block_n = _ring_block(degree, n, xk.element_size(),
+                                  wk is not None, nbuf,
+                                  torch.empty((), dtype=accum_dtype)
+                                  .element_size(), dev)
+        g = kernel.moments_packed_ring(xk, yk, wk, block_n=block_n,
+                                       nbuf=nbuf, **common)
+    elif use_packed:
+        g = kernel.moments_packed(xk, yk, wk, **common)
+    else:
+        g = kernel.moments_plain(xk, yk, wk, **common)
     m1 = degree + 1
-    out = Moments(gram=g[:, :m1, :m1], vty=g[:, :m1, m1], yty=g[:, m1, m1],
-                  count=count, weight_sum=weight_sum)
-    if flat:
-        out = Moments(*(getattr(out, f)[0] for f in
-                        ("gram", "vty", "yty", "count", "weight_sum")))
-    return out
+    return Moments(gram=g[:, :m1, :m1].reshape(batch + (m1, m1)),
+                   vty=g[:, :m1, m1].reshape(batch + (m1,)),
+                   yty=g[:, m1, m1].reshape(batch),
+                   count=count.reshape(batch),
+                   weight_sum=weight_sum.reshape(batch))
 
 
 def fused_report_sums(x, y, coeffs, *, weights=None,

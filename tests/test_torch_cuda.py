@@ -8,6 +8,8 @@ reference package, so it runs on a machine that has only the port:
 
 Tolerance: max|Δ| <= 1e-5 · max|ref| per series, against the plain
 version accumulated in float64 (float32 sums over ~5000 points)."""
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -68,7 +70,97 @@ def test_cuda_launch_counts_and_fit(cuda):
     core.fit_report_streamed(res.poly, x, y)
     api.fit(x[0], y[0], api.FitSpec(degree=3))
     assert K.launch_counts() == {"moments_plain": 1, "moments_packed": 1,
+                                 "moments_packed_ring": 0,
                                  "fused_report": 1}
     np.testing.assert_allclose(res.coeffs.cpu().numpy(),
                                np.tile([1.0, 1.0, 0.0, -1.0], (4, 1)),
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", [0, 3, 7, 14, 20, 62])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("compensated", [False, True])
+def test_cuda_ring_kernel_bit_equals_packed(cuda, degree, dtype,
+                                            compensated):
+    """The ring changes only the loads: same bits as moments_packed for
+    every block and nbuf, weighted or not, on ragged lengths and on views
+    that start at an odd element (a bfloat16 row off its 4-byte word)."""
+    g = torch.Generator(device=cuda).manual_seed(degree + 7)
+    b, n = 11, 5003
+    x = (torch.rand(b, n + 1, generator=g, device=cuda) * 2 - 1).to(dtype)
+    y = torch.randn(b, n + 1, generator=g, device=cuda).to(dtype)
+    w = torch.rand(b, n, generator=g, device=cuda) * (
+        torch.rand(b, n, generator=g, device=cuda) > 0.3)
+    for xc, yc in ((x[:, :n].contiguous(), y[:, :n].contiguous()),
+                   (x.flatten()[1:1 + b * n].view(b, n),
+                    y.flatten()[1:1 + b * n].view(b, n))):
+        for wc in (None, w):
+            want = K.moments_packed(xc, yc, wc, degree=degree,
+                                    compensated=compensated)
+            for block_n, nbuf in ((32, 2), (128, 3), (256, 4), (512, 2)):
+                got = K.moments_packed_ring(xc, yc, wc, degree=degree,
+                                            block_n=block_n, nbuf=nbuf,
+                                            compensated=compensated)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (block_n, nbuf)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_smem_path_with_static_and_dynamic_past_48k(cuda):
+    """Degree 20: a 37 KB ring beside the 16 KB static tile needs the
+    opt-in for more than 48 KB in all, though the ring alone is below."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.rand(5, 9000, generator=g, device=cuda) * 2 - 1
+    y = torch.randn(5, 9000, generator=g, device=cuda)
+    w = torch.rand(5, 9000, generator=g, device=cuda)
+    want = K.moments_packed(x, y, w, degree=20)
+    got = K.moments_packed_ring(x, y, w, degree=20, block_n=1024, nbuf=3)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", [0, 3, 7, 14, 15, 20, 62])
+def test_cuda_budget_model_matches_the_launcher(cuda, degree):
+    """tune.ring_smem_bytes is the planning copy of the launcher's
+    ring_cta_bytes: same bytes for every dtype pair, block, nbuf and
+    weighting; and the card's opt-in limit is the planning budget."""
+    from repro_torch.kernels import build, tune
+    lib = build.library()
+    for (din, dacc), bn, nbuf, wt in itertools.product(
+            ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+             (torch.float64, torch.float64), (torch.float32, torch.float64)),
+            tune.CANDIDATE_BLOCKS, (2, 3, 4), (False, True)):
+        want = lib.repro_ring_smem_bytes(K._IN_CODES[din], K._ACC_CODES[dacc],
+                                         degree, bn, nbuf, int(wt))
+        got = tune.ring_smem_bytes(degree, bn, nbuf=nbuf,
+                                   itemsize=din.itemsize, weighted=wt,
+                                   accum_itemsize=dacc.itemsize)
+        assert got == want, (din, dacc, bn, nbuf, wt)
+    assert tune.smem_budget(cuda) == tune.SMEM_BUDGET
+
+
+@pytest.mark.cuda
+def test_cuda_ring_refuses_a_ring_beyond_shared_memory(cuda):
+    x = torch.rand(4, 70000, device=cuda)
+    with pytest.raises(RuntimeError, match="moments_packed_ring launch"):
+        K.moments_packed_ring(x, x, degree=3, block_n=4096, nbuf=4)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_through_ops_and_tuner(cuda):
+    from repro_torch.kernels import ops, tune
+    tune.clear_cache()
+    x = torch.rand(3, 4, 20000, device=cuda) * 2 - 1
+    y = 1 + x - x ** 3
+    bn = tune.autotune_block_n(3, 4096, device=cuda)
+    assert bn in tune.feasible_blocks(3)
+    assert tune.autotune_block_n(3, device=cuda) == bn   # cached
+    K.reset_launch_counts()
+    m0 = ops.moments(x, y, 3, packing="packed")
+    m2 = ops.moments(x, y, 3, packing="packed", nbuf=2, block_n=bn)
+    assert K.launch_counts()["moments_packed_ring"] == 1
+    for f in ("gram", "vty", "yty", "count", "weight_sum"):
+        assert torch.equal(getattr(m0, f), getattr(m2, f)), f
+    assert m2.gram.shape == (3, 4, 4, 4)

@@ -216,10 +216,12 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: api.spec_from_legacy("auto"),
-    lambda: api.FitSpec(degree="auto"),
     lambda: api.fit([0.0, 1.0, 2.0], [1.0, 2.0, 3.0],
-                    api.FitSpec(degree=1, method="irls"), device=CPU),
+                    api.spec_from_legacy(1, solver="lspia"), device=CPU),
+    lambda: core.polyfit([0.0, 1.0, 2.0], [1.0, 2.0, 3.0], 1,
+                         method="lspia", device=CPU),
+    lambda: api.fit([[0.0, 1.0, 2.0]] * 2, [[1.0, 2.0, 3.0]] * 2,
+                    api.FitSpec(degree=1, method="lspia"), device=CPU),
     lambda: api.fit([0.0, 1.0, 2.0], [1.0, 2.0, 3.0],
                     api.FitSpec(degree=1, method="lspia"), device=CPU),
     lambda: core.polyfit([0.0, 1.0, 2.0], [1.0, 2.0, 3.0], 1,

@@ -112,17 +112,31 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     tx, ty = torch.from_numpy(x), torch.from_numpy(y)
     K.moments_plain(tx, ty, degree=2)
     K.moments_packed(tx, ty, degree=2)
+    K.moments_packed_ring(tx, ty, degree=2, block_n=32, nbuf=2)
     K.fused_report(tx, ty, None, torch.zeros(2, 3))
     assert K.launch_counts() == {"moments_plain": 0, "moments_packed": 0,
+                                 "moments_packed_ring": 0,
                                  "fused_report": 0}
 
 
 def test_nbuf_and_packing_validation():
     x, y, _ = _data(10, (2, 20))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        ops.moments(x, y, 3, nbuf=2, device="cpu")
+    m0 = ops.moments(x, y, 3, device="cpu")
+    m2 = ops.moments(x, y, 3, nbuf=2, device="cpu")
+    m3 = ops.moments(x, y, 3, nbuf=3, block_n=64, device="cpu")
+    for f in FIELDS:
+        assert torch.equal(getattr(m0, f), getattr(m2, f)), f
+        assert torch.equal(getattr(m0, f), getattr(m3, f)), f
     with pytest.raises(ValueError):
         ops.moments(x, y, 3, nbuf=1, device="cpu")
+    with pytest.raises(ValueError):
+        ops.moments(x, y, 3, nbuf=-2, device="cpu")
+    with pytest.raises(ValueError, match="plain"):
+        ops.moments(x, y, 3, nbuf=2, packing="plain", device="cpu")
+    with pytest.raises(ValueError, match="plain"):
+        ops.moments(x[0], y[0], 3, nbuf=2, device="cpu")
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ops.moments(x, y, 3, nbuf=2, block_n=100, device="cpu")
     with pytest.raises(ValueError):
         ops.moments(x, y, 3, packing="tiled", device="cpu")
     with pytest.raises(ValueError):
@@ -133,13 +147,19 @@ def test_nbuf_and_packing_validation():
 
 
 def test_build_command_targets_sm90a_without_fast_math(tmp_path):
-    cmd = build.nvcc_command(tmp_path / "lib.so", "nvcc")
-    joined = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in joined
-    assert "-O3" in cmd and "-shared" in cmd
-    assert "fast_math" not in joined and "fast-math" not in joined
-    assert [str(s) for s in build.sources()] == [
-        c for c in cmd if c.endswith(".cu")]
+    srcs = build.sources()
+    assert [s.name for s in srcs] == ["moments.cu", "moments_ring.cu"]
+    objs = [tmp_path / f"{s.stem}.o" for s in srcs]
+    for src, obj in zip(srcs, objs):
+        cmd = build.compile_command(src, obj, "nvcc")
+        joined = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in joined
+        assert "-O3" in cmd and "-c" in cmd and cmd[-1] == str(src)
+        assert "fast_math" not in joined and "fast-math" not in joined
+    link = build.link_command(objs, tmp_path / "lib.so", "nvcc")
+    assert "-shared" in link and link[-len(objs):] == [str(o) for o in objs]
+    assert "fast_math" not in " ".join(link)
+    assert [h.name for h in build.headers()] == ["moments_common.cuh"]
     assert build.library_path().parent == build.BUILD_DIR
     assert build.library_path().name.startswith("librepro_kernels_")
 
@@ -153,3 +173,28 @@ def test_splits_fill_the_card_and_stay_deterministic(b, n, tasks_per_cta):
     assert 1 <= s <= max(1, -(-n // K.MIN_SPLIT_POINTS))
     if n >= K.MIN_SPLIT_POINTS * 1056:
         assert b * s >= K.CTAS_PER_SM * 132 * tasks_per_cta
+
+
+def test_kernel_plan_takes_multi_axis_batches():
+    """A kernel plan on a (3, 4, n) batch flattens the leading axes for
+    the kernel and restores them on every field (the fold pass of degree
+    selection hands the kernel (k, ..., n/k)).  Held against the
+    reference's jnp moments on the same inputs; rtol 2e-5, atol 1e-3 as
+    above."""
+    from repro import core as jcore
+    from repro_torch import engine
+    x, y, w = _data(12, (3, 4, 90), zero_weights=True)
+    jm = jcore.gram_moments(jnp.asarray(x), jnp.asarray(y), 3,
+                            weights=jnp.asarray(w))
+    for path in ("kernel_packed", "kernel_plain"):
+        plan = engine.plan_fit(x.shape, 3, engine=path, device="cpu")
+        tm = engine.compute_moments(plan, torch.from_numpy(x),
+                                    torch.from_numpy(y), torch.from_numpy(w))
+        assert tm.gram.shape == (3, 4, 4, 4) and tm.count.shape == (3, 4)
+        _close(tm, jm)
+    tm = ops.moments(x, y, 3, weights=w[0], packing="packed", nbuf=2,
+                     block_n=32, device="cpu")
+    assert tm.weight_sum.shape == (3, 4)
+    np.testing.assert_allclose(tm.weight_sum.numpy(),
+                               np.broadcast_to(w[0].sum(-1), (3, 4)),
+                               rtol=1e-6)

@@ -29,6 +29,22 @@ kernels from ``src/repro_torch/kernels/csrc``, then:
   phase 7  IRLS at phase 2's shape with 10% gross outliers: Huber and
            Tukey api.fit(method="irls") against the planted cubic, where
            the plain LSE fit misses it
+  phase 8  streaming: phase 2's data through api.stream_state in 8 chunks
+           of 8192 on the packed kernel (moments vs float64, coefficients
+           vs api.fit), snapshot after chunk 4 restored and fed chunks 5-8
+           bit-equal to the uninterrupted run, γ = 0.9999 decay vs the
+           weighted api.fit, a streamed DegreeSearch(8, 5), streaming
+           Huber IRLS on phase 7's data, one series of 2^28 points in 8
+           chunks of 2^25 on the plain kernel; time per chunk update
+  phase 9  LSPIA at phase 2's shape: the matrix-free api.fit(method=
+           "lspia") against phase 2's LSE fit, and moment-space LSPIA
+           (stream_result of an LSPIA stream) at the same fixed point
+  phase 10 the fit server: FitServeEngine(n_slots=256, buckets=(4096,
+           65536)), warmup, then 4096 ragged requests (lengths log-uniform
+           in [64, 2^20]; fixed degree, auto degree, Huber IRLS, LSPIA,
+           nested degree 2 with ridge) with observability on: no new
+           executables after warmup, every moment pass on the packed
+           kernel, LSE requests vs float64 least squares
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure, or when
@@ -43,6 +59,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -347,10 +365,16 @@ def main() -> int:
     log(f"phase4 paper Table I, degree 3, f64: Σe² = {sse4:.6f}")
 
     ctx = dict(torch=torch, dev=dev, uniform=uniform, gen=gen, K=K, ops=ops,
-               tune=tune, api=api, core=core, engine=engine)
+               tune=tune, api=api, core=core, engine=engine,
+               cuda_ms=functools.partial(cuda_ms, torch),
+               host_ms=functools.partial(_host_ms, torch),
+               sync=torch.cuda.synchronize)
     rows["moments_packed_ring"], launches5 = phase5(ctx)
     launches6, select_ms = phase6(ctx)
     launches7, irls_ms = phase7(ctx)
+    launches8, stream_ms = phase8(ctx)
+    launches9, lspia_ms = phase9(ctx)
+    launches10, serve_out = phase10(ctx)
 
     # ----------------------------------------------------------------- report
     replaces = {   # the TPU kernel bodies in the JAX reference
@@ -366,7 +390,8 @@ def main() -> int:
                "src/repro_torch/kernels/csrc/moments_ring.cu"}
     # each main path's launches, counted from 0 just before it
     launches = {k: sum(run[k] for run in (launches2, launches3, launches5,
-                                          launches6, launches7))
+                                          launches6, launches7, launches8,
+                                          launches9, launches10))
                 for k in launches2}
     kernels = []
     for name in ("moments_plain", "moments_packed", "moments_packed_ring",
@@ -394,7 +419,10 @@ def main() -> int:
                                  "packed_ms_same_run") if k in r}})
     log(f"end to end: api.fit phase2 {fit2_ms:.3f} ms, phase3 "
         f"{fit3_ms:.3f} ms, phase6 selection {select_ms:.3f} ms, phase7 "
-        f"IRLS {json.dumps(irls_ms)}; copy {copy_bw / 1e9:.1f} GB/s; total "
+        f"IRLS {json.dumps(irls_ms)}; phase8 streaming "
+        f"{json.dumps(stream_ms)}; phase9 LSPIA {json.dumps(lspia_ms)}; "
+        f"phase10 serving {json.dumps(serve_out)}; copy "
+        f"{copy_bw / 1e9:.1f} GB/s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -645,6 +673,497 @@ def phase7(c):
     times["weighted_pass_ms"] = pass_ms
     torch.cuda.empty_cache()
     return total, times
+
+
+N_LONG, CHUNKS = 1 << 28, 8
+# the fit server of phase 10
+SERVE_SLOTS, SERVE_BUCKETS = 256, (4096, 65536)
+SERVE_REQUESTS, SERVE_MIN_N, SERVE_MAX_N = 4096, 64, 1 << 20
+SERVE_BREAKDOWN = 512     # requests served again to split a step's time
+# a smoke mix with no public source, chosen to reach every request kind
+# the server answers: default fixed degree, degree="auto" (AICc), Huber
+# IRLS on series with 10% outliers, moment-space LSPIA, nested degree 2
+# with ridge.  Its lengths reach far past the reference launcher's
+# defaults ([16, 8192], buckets (256, 2048), fixed-degree requests only)
+SERVE_MIX = (("fixed", 0.70), ("auto", 0.10), ("irls", 0.10),
+             ("lspia", 0.05), ("nested", 0.05))
+# LSE requests against float64 least squares: max|Δc| <= TOL_SERVE · κ ·
+# eps32 · max|c64|, κ the float64 Gram's condition number (the f32 Gram's
+# rounding, amplified by κ in the solve)
+TOL_SERVE = 64.0
+
+
+def phase8(c):
+    """Streaming at full width: chunked updates on the packed kernel,
+    snapshot/restore bit-equality, decay, a streamed degree search,
+    streaming IRLS, and one long series on the plain kernel."""
+    torch, K, api, engine = c["torch"], c["K"], c["api"], c["engine"]
+    cuda_ms = c["cuda_ms"]
+    from repro_torch.core import streaming
+    x, y, planted = _planted_data(c)
+    chunk = N_MAIN // CHUNKS
+
+    def chunks(a):
+        w = a.shape[-1] // CHUNKS
+        return [a[..., i * w:(i + 1) * w] for i in range(CHUNKS)]
+
+    def feed(st, xs, ys):
+        for xc, yc in zip(xs, ys):
+            st = streaming.update(st, xc, yc)
+        return st
+
+    xs, ys = chunks(x), chunks(y)
+    spec = api.FitSpec(degree=3)
+    st0 = api.stream_state(spec, (B_MAIN,), device=c["dev"])
+    plan = streaming.update_plan(st0, (B_MAIN, chunk), x.dtype)
+    require(plan.path == engine.KERNEL_PACKED, f"phase8 plan {plan.path}")
+    K.reset_launch_counts()
+    st = st0
+    snap = None
+    for i, (xc, yc) in enumerate(zip(xs, ys)):
+        st = streaming.update(st, xc, yc)
+        if i == CHUNKS // 2 - 1:
+            snap = st.snapshot()
+    res = api.stream_result(st)
+    c["sync"]()
+    launches = K.launch_counts()
+    require(launches["moments_packed"] == CHUNKS,
+            f"phase8 launches {launches}")
+    total = dict(launches)
+
+    # the running moments against chunked float64 moments
+    g64 = chunked(torch, lambda lo, hi: K.moments_block_plain(
+        x[:, lo:hi], y[:, lo:hi], None, 3, torch.float64), N_MAIN, chunk)
+    got = torch.cat([st.moments.gram.reshape(B_MAIN, -1),
+                     st.moments.vty, st.moments.yty[:, None]], 1)
+    want = torch.cat([g64[:, :4, :4].reshape(B_MAIN, -1), g64[:, :4, 4],
+                      g64[:, 4, 4, None]], 1)
+    _, mom_rel = block_rel_err(got, want)
+    require(mom_rel <= TOL_MAIN, f"phase8 moments rel {mom_rel:.3e}")
+    require(bool((st.moments.count == N_MAIN).all()), "phase8 count")
+    lse = api.fit(x, y, spec, device=c["dev"])
+    _, coef_rel = rel_err(res.coeffs, lse.coeffs)
+    require(coef_rel <= 1e-3, f"phase8 coeffs vs api.fit rel {coef_rel:.3e}")
+
+    # restore the snapshot taken after chunk 4, feed chunks 5-8
+    rs = streaming.StreamState.restore(snap, spec=spec, device=c["dev"])
+    rs = feed(rs, xs[CHUNKS // 2:], ys[CHUNKS // 2:])
+    require(all(torch.equal(getattr(rs.moments, f), getattr(st.moments, f))
+                for f in ("gram", "vty", "yty", "count", "weight_sum")),
+            "phase8 restored stream is not bit-equal")
+    require(torch.equal(api.stream_result(rs).coeffs, res.coeffs),
+            "phase8 restored coefficients are not bit-equal")
+
+    # exponential forgetting against the weighted eager fit
+    spec_d = api.FitSpec(degree=3, decay=0.9999)
+    sd = feed(api.stream_state(spec_d, (B_MAIN,), device=c["dev"]), xs,
+              ys)
+    _, decay_rel = rel_err(api.stream_result(sd).coeffs,
+                           api.fit(x, y, spec_d, device=c["dev"]).coeffs)
+    require(decay_rel <= 1e-3, f"phase8 decay vs api.fit rel {decay_rel:.3e}")
+
+    # a streamed degree search: chunk-round-robin folds, pinned domain
+    spec_s = api.FitSpec(degree=api.DegreeSearch(max_degree=8, folds=5),
+                         domain=(0.0, 0.5))
+    ss = feed(api.stream_state(spec_s, (B_MAIN,), device=c["dev"]), xs,
+              ys)
+    best = np.asarray(api.stream_result(ss).best_degree)
+    share3 = float((best == 3).mean())
+    # as phase 6: the x³ term stands far above the noise (no degree below
+    # 3); the one-SE CV rule keeps overfitting rare
+    require(int(best.min()) >= 3, f"phase8 underfit: min degree {best.min()}")
+    require(share3 >= 0.95, f"phase8 degree-3 share {share3:.4f}")
+
+    # streaming Huber IRLS on phase 7's data
+    xo, yo, _ = _planted_data(c, outliers=0.1)
+    spec_h = api.FitSpec(degree=3, method="irls",
+                         irls=api.IRLSOptions(loss="huber"))
+    sh = api.stream_state(spec_h, (B_MAIN,), device=c["dev"])
+    K.reset_launch_counts()
+    sh = feed(sh, chunks(xo), chunks(yo))
+    rh = api.stream_result(sh)
+    c["sync"]()
+    lh = K.launch_counts()
+    # per chunk: stream_sweeps − 1 reweighting passes + the update's own
+    want_h = CHUNKS * spec_h.irls.stream_sweeps
+    require(lh["moments_packed"] == want_h, f"phase8 IRLS launches {lh}")
+    for k, v in lh.items():
+        total[k] += v
+    huber_err = float((rh.coeffs - planted).abs().max())
+    # the eager Huber bound of phase 7 (a bounded pull c·σ̂ per outlier):
+    # each chunk is reweighted against the running fit, one pass only
+    require(huber_err <= 5e-2, f"phase8 streaming Huber err {huber_err:.3e}")
+
+    # times: one chunk update (CUDA events) and the readout
+    xc, yc = xs[0], ys[0]
+    times = {
+        "update_ms": cuda_ms(lambda: streaming.update(st, xc, yc)),
+        "update_decay_ms": cuda_ms(lambda: streaming.update(sd, xc, yc)),
+        "update_folds_ms": cuda_ms(lambda: streaming.update(ss, xc, yc)),
+        "update_huber_ms": cuda_ms(lambda: streaming.update(
+            sh, chunks(xo)[0], chunks(yo)[0]), reps=5),
+        "stream_result_ms": cuda_ms(lambda: api.stream_result(st)),
+        "stream_result_search_ms": cuda_ms(
+            lambda: api.stream_result(ss), reps=5)}
+    log(f"phase8 plan {plan.describe()}; {CHUNKS} chunks of {chunk}: "
+        f"moments rel err vs f64 {mom_rel:.3e}, coeffs vs api.fit "
+        f"{coef_rel:.3e}; snapshot after chunk {CHUNKS // 2} restored: "
+        f"bit-equal; decay 0.9999 vs api.fit {decay_rel:.3e}; streamed "
+        f"DegreeSearch(8, 5) degree-3 share {share3:.4f} (degrees "
+        f"{sorted(set(best.tolist()))}); streaming Huber err "
+        f"{huber_err:.3e}; launches {launches}, IRLS {lh}")
+    del x, y, xs, ys, xo, yo, g64, lse
+    torch.cuda.empty_cache()
+
+    # one long series on the plain kernel
+    xl = c["uniform"]((N_LONG,))
+    yl = c["core"].evaluate(planted, xl) + 0.1 * torch.randn(
+        (N_LONG,), generator=c["gen"], device=c["dev"])
+    lchunk = N_LONG // CHUNKS
+    sl0 = api.stream_state(spec, device=c["dev"])
+    plan_l = streaming.update_plan(sl0, (lchunk,), xl.dtype)
+    require(plan_l.path == engine.KERNEL_PLAIN, f"phase8 plan {plan_l.path}")
+    K.reset_launch_counts()
+    sl = feed(sl0, chunks(xl), chunks(yl))
+    rl = api.stream_result(sl)
+    c["sync"]()
+    ll = K.launch_counts()
+    require(ll["moments_plain"] == CHUNKS, f"phase8 long launches {ll}")
+    for k, v in ll.items():
+        total[k] += v
+    g64 = chunked(torch, lambda lo, hi: K.moments_block_plain(
+        xl[None, lo:hi], yl[None, lo:hi], None, 3, torch.float64), N_LONG,
+        1 << 23)
+    _, long_rel = rel_err(sl.moments.gram, g64[0, :4, :4])
+    require(long_rel <= TOL_MAIN, f"phase8 long Gram rel {long_rel:.3e}")
+    _, long_coef = rel_err(rl.coeffs,
+                           api.fit(xl, yl, spec, device=c["dev"]).coeffs)
+    require(long_coef <= 1e-3, f"phase8 long coeffs rel {long_coef:.3e}")
+    long_err = float((rl.coeffs - planted).abs().max())
+    require(long_err <= 1e-3, f"phase8 long planted err {long_err:.3e}")
+    times["update_long_ms"] = cuda_ms(
+        lambda: streaming.update(sl, xl[:lchunk], yl[:lchunk]), reps=8)
+    log(f"phase8 plan {plan_l.describe()}; {CHUNKS} chunks of {lchunk}: "
+        f"Gram rel err vs f64 {long_rel:.3e}, coeffs vs api.fit "
+        f"{long_coef:.3e}, planted err {long_err:.3e}; launches {ll}; "
+        f"times {json.dumps(times)} (CUDA events, medians)")
+    del xl, yl, g64
+    torch.cuda.empty_cache()
+    return total, times
+
+
+# the LSPIA options of phase 9: heavy-ball momentum halves the sweeps at
+# this conditioning (κ ≈ 54 on [-1, 1]); tol stays the default, floored at
+# 25·eps32 ≈ 3e-6 by the iteration
+LSPIA_OPTIONS = dict(momentum=0.5)
+
+
+def phase9(c):
+    """LSPIA at full width: the matrix-free iteration on raw data and the
+    moment-space iteration on a stream, against the LSE fit."""
+    torch, K, api, engine = c["torch"], c["K"], c["api"], c["engine"]
+    host_ms = c["host_ms"]
+    from repro_torch.core import streaming
+    x, y, _ = _planted_data(c)
+    spec = api.FitSpec(degree=3, method="lspia",
+                       lspia=api.LSPIAOptions(**LSPIA_OPTIONS),
+                       domain=(0.0, 0.5))
+    plan = spec.plan(tuple(x.shape), x.dtype, workload="lspia",
+                     device=c["dev"])
+    require(plan.path == engine.REFERENCE, f"phase9 plan {plan.path}")
+    K.reset_launch_counts()
+    res = api.fit(x, y, spec, device=c["dev"])
+    c["sync"]()
+    launches = K.launch_counts()
+    require(sum(launches.values()) == 0, f"phase9 launches {launches}")
+    conv = float(res.converged.float().mean())
+    require(conv == 1.0, f"phase9 converged share {conv:.4f}")
+    lse = api.fit(x, y, api.FitSpec(degree=3), device=c["dev"])
+    grid = torch.linspace(-2.0, 2.0, 401, device=c["dev"])
+    ref_vals = lse.poly(grid)
+    scale = float(ref_vals.abs().max())
+    # at tol ≈ 3e-6 of ‖Vᵀy‖ and κ ≈ 54 the coefficients sit within
+    # ~2e-4 (relative) of the fixed point: hold the values to 1e-3
+    vals_rel = float((res.poly(grid) - ref_vals).abs().max()) / scale
+    require(vals_rel <= 1e-3, f"phase9 values vs LSE rel {vals_rel:.3e}")
+    total_ms = host_ms(lambda: api.fit(x, y, spec, device=c["dev"]))
+    chunk = N_MAIN // CHUNKS
+    st = api.stream_state(spec, (B_MAIN,), device=c["dev"])
+    for i in range(CHUNKS):
+        st = streaming.update(st, x[:, i * chunk:(i + 1) * chunk],
+                              y[:, i * chunk:(i + 1) * chunk])
+    sr = api.stream_result(st)
+    mconv = float(sr.converged.float().mean())
+    require(mconv == 1.0, f"phase9 moment-space converged share {mconv}")
+    mvals_rel = float((sr.poly(grid) - res.poly(grid)).abs().max()) / scale
+    require(mvals_rel <= 1e-3,
+            f"phase9 moment-space vs matrix-free rel {mvals_rel:.3e}")
+    moment_ms = host_ms(lambda: api.stream_result(st))
+    out = {"iterations": res.iterations, "total_ms": total_ms,
+           "ms_per_sweep": total_ms / max(res.iterations, 1),
+           "moment_space_iterations": sr.iterations,
+           "moment_space_ms": moment_ms}
+    log(f"phase9 plan {plan.describe()}; options {LSPIA_OPTIONS}: "
+        f"{res.iterations} sweeps, converged share {conv:.4f}, values vs "
+        f"LSE rel {vals_rel:.3e}; api.fit {total_ms:.3f} ms "
+        f"({out['ms_per_sweep']:.3f} ms per sweep, power sweeps "
+        f"included; host clock); moment-space {sr.iterations} sweeps, "
+        f"{moment_ms:.3f} ms, vs matrix-free rel {mvals_rel:.3e}")
+    del x, y, lse
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _serve_requests(c, rng):
+    """Phase 10's traffic: (kind, x, y) with lengths log-uniform in
+    [SERVE_MIN_N, SERVE_MAX_N] and the planted cubic + N(0, 0.1²) noise;
+    IRLS requests get 10% of their points thrown up by U(5, 20)."""
+    kinds = [k for k, _ in SERVE_MIX]
+    probs = [p for _, p in SERVE_MIX]
+    out = []
+    for kind in rng.choice(len(kinds), SERVE_REQUESTS, p=probs):
+        n = int(np.exp(rng.uniform(np.log(SERVE_MIN_N),
+                                   np.log(SERVE_MAX_N))))
+        x = rng.uniform(-2, 2, n).astype(np.float32)
+        y = np.polyval(PLANTED[::-1], x) + rng.normal(0, 0.1, n)
+        if kinds[kind] == "irls":
+            hit = rng.uniform(size=n) < 0.1
+            y = np.where(hit, y + rng.uniform(5, 20, n), y)
+        out.append((kinds[kind], x, y.astype(np.float32)))
+    return out
+
+
+def _lstsq64(x, y, degree, ridge):
+    """The float64 least-squares coefficients of one series (normal
+    equations with the request's ridge) and the Gram's condition number."""
+    v = np.vander(x.astype(np.float64), degree + 1, increasing=True)
+    g = v.T @ v + ridge * np.eye(degree + 1)
+    return np.linalg.solve(g, v.T @ y.astype(np.float64)), np.linalg.cond(g)
+
+
+def phase10(c):
+    """The fit server at full width with observability on."""
+    torch, K, api, engine = c["torch"], c["K"], c["api"], c["engine"]
+    from repro_torch import obs as obs_lib
+    from repro_torch.core import streaming
+    from repro_torch.serve import FitServeConfig, FitServeEngine
+    cfg = FitServeConfig(degree=3, n_slots=SERVE_SLOTS,
+                         buckets=SERVE_BUCKETS)
+    obs = obs_lib.Observability.on(device=c["dev"])
+    eng = FitServeEngine(cfg, obs=obs, device=c["dev"])
+    for b in eng.buckets:
+        plan = streaming.update_plan(b.state, (SERVE_SLOTS, b.width),
+                                     torch.float32)
+        require(plan.path == engine.KERNEL_PACKED,
+                f"phase10 bucket {b.width} plan {plan.path}")
+    t0 = time.perf_counter()
+    warm = eng.warmup()
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(10)
+    traffic = _serve_requests(c, rng)
+    specs = {"fixed": None,
+             "irls": api.FitSpec(degree=3, method="irls",
+                                 irls=api.IRLSOptions(loss="huber")),
+             "lspia": api.FitSpec(degree=3, method="lspia"),
+             "nested": api.FitSpec(degree=2, ridge=1e-6)}
+    # each novel request spec adds one solve key at its first use; serve
+    # one short request of each before the traffic
+    xw = np.linspace(-1.0, 1.0, 64, dtype=np.float32)
+    for kind in ("irls", "lspia", "nested"):
+        eng.submit(xw, xw, spec=specs[kind])
+    eng.run()
+    warm_specs = eng.compiled_executables()
+    require(warm_specs - warm == 3,
+            f"phase10 novel specs added {warm_specs - warm} keys, not 3")
+    counters0 = dict(obs.metrics.snapshot()["counters"])
+    steps0 = eng._step_no
+    reqs = []
+    for kind, x, y in traffic:
+        if kind == "auto":
+            reqs.append(eng.submit(x, y, degree="auto"))
+        else:
+            reqs.append(eng.submit(x, y, spec=specs[kind]))
+    engine.reset_moment_counter()
+    K.reset_launch_counts()
+    c["sync"]()
+    t0 = time.perf_counter()
+    eng.run()
+    c["sync"]()
+    run_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    passes = engine.moment_counter()["calls"]
+    steps = eng._step_no - steps0
+    # every moment pass of the run (ingest, IRLS reweighting) took the
+    # packed kernel
+    require(launches["moments_packed"] == passes and passes >= steps,
+            f"phase10 {passes} moment passes, launches {launches}, "
+            f"{steps} steps")
+    require(all(r.done for r in reqs), "phase10 requests not served")
+    new_execs = eng.compiled_executables() - warm_specs
+    require(new_execs == 0, f"phase10 {new_execs} new executables")
+    counters = obs.metrics.snapshot()["counters"]
+    sub = counters["submitted"] - counters0["submitted"]
+    done = counters["completed"] - counters0["completed"]
+    require(sub == done == SERVE_REQUESTS,
+            f"phase10 submitted {sub}, completed {done}")
+    obs_lib.assert_valid(obs.tracer.events)
+
+    worst = 0.0
+    checked = 0
+    eps32 = float(np.finfo(np.float32).eps)
+    for (kind, x, y), r in zip(traffic, reqs):
+        if kind not in ("fixed", "nested"):
+            continue
+        spec = r.spec
+        c64, kappa = _lstsq64(x, y, int(spec.degree), spec.ridge)
+        err = float(np.abs(r.coeffs - c64).max())
+        bound = TOL_SERVE * kappa * eps32 * max(1.0, np.abs(c64).max())
+        require(err <= bound, f"phase10 req {r.uid} (n={r.n}, {kind}) "
+                f"coeff err {err:.3e} > {bound:.3e} (κ {kappa:.3e})")
+        worst = max(worst, err / bound)
+        checked += 1
+    autos = [r for (kind, _, _), r in zip(traffic, reqs) if kind == "auto"]
+    share3 = float(np.mean([r.degree == 3 for r in autos]))
+    require(share3 >= 0.95, f"phase10 auto degree-3 share {share3:.4f}")
+    lspia = [r for (kind, _, _), r in zip(traffic, reqs) if kind == "lspia"]
+    lspia_conv = float(np.mean([not r.fallback_used for r in lspia]))
+    irls = [r for (kind, _, _), r in zip(traffic, reqs) if kind == "irls"]
+    irls_err = float(np.median([np.abs(r.coeffs - PLANTED).max()
+                                for r in irls]))
+    pts = sum(r.n for r in reqs)
+    out = {"requests": SERVE_REQUESTS, "points": pts, "steps": steps,
+           "run_s": run_s, "fits_per_s": SERVE_REQUESTS / run_s,
+           "mpts_per_s": pts / run_s / 1e6,
+           "ms_per_step": run_s / steps * 1e3, "warmup_s": warm_s,
+           "executables": warm, "executables_with_specs": warm_specs,
+           "new_executables": new_execs,
+           "moment_passes": passes}
+    out.update(_serve_device_time(c, traffic[:SERVE_BREAKDOWN], specs))
+    lat = obs.metrics.histogram("fit_latency_steps")
+    log(f"phase10 {SERVE_REQUESTS} requests, {pts} points, {steps} steps "
+        f"in {run_s:.3f} s: {out['fits_per_s']:.1f} fits/s, "
+        f"{out['mpts_per_s']:.2f} Mpts/s, {out['ms_per_step']:.3f} ms per "
+        f"step (host clock); warmup {warm_s:.1f} s, {warm} executables "
+        f"({warm_specs} with the 3 request specs), {new_execs} new in "
+        f"the run; {passes} moment passes, all "
+        f"packed (launches {launches}); LSE requests vs float64 within "
+        f"{worst:.3f} of the κ-scaled bound ({checked} checked); auto "
+        f"degree-3 share {share3:.4f}; LSPIA converged share "
+        f"{lspia_conv:.4f}; Huber median planted err {irls_err:.3e}; "
+        f"latency p50/p99 {lat.quantile(0.5):.0f}/{lat.quantile(0.99):.0f} "
+        f"steps; trace valid ({len(obs.tracer.events)} events)")
+    log(f"phase10 where a step's time goes (first {SERVE_BREAKDOWN} "
+        "requests): "
+        + json.dumps({k: v for k, v in out.items()
+                      if k.startswith(("breakdown", "step_", "host_",
+                                       "profiled", "device", "moment_kernel",
+                                       "copy"))}))
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _serve_engine(c, traffic, specs):
+    """A warmed fit server with ``traffic`` submitted and not yet run."""
+    from repro_torch.serve import FitServeConfig, FitServeEngine
+    eng = FitServeEngine(FitServeConfig(degree=3, n_slots=SERVE_SLOTS,
+                                        buckets=SERVE_BUCKETS),
+                         device=c["dev"])
+    eng.warmup()
+    for kind, x, y in traffic:
+        if kind == "auto":
+            eng.submit(x, y, degree="auto")
+        else:
+            eng.submit(x, y, spec=specs[kind])
+    return eng
+
+
+def _serve_device_time(c, traffic, specs):
+    """Where a serving step's time goes, on the first requests of the
+    traffic, served twice by fresh engines.  First with every step
+    function timed between two synchronizations and keyed by the request
+    kind it serves (the ingest with or without robust slots, the fused
+    ingest+default solve, each per-spec solve, the auto-degree sweep), so
+    each kind's cost per call on the (n_slots, width) pool reads apart
+    from this mix; the rest of the step is host work (filling the
+    (n_slots, width) arrays, copying them to the card, bookkeeping,
+    reading results back).  Then under ``torch.profiler``: the device
+    time of every kernel and copy, and of the moment kernels, per step."""
+    torch = c["torch"]
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng = _serve_engine(c, traffic, specs)
+    spent: dict[str, float] = {}
+    calls: dict[str, int] = {}
+
+    def timed(name, fn):
+        def run(*args):
+            key = name
+            if name == "solve":       # the per-spec solves, by method
+                key = f"solve_{args[1].method}_degree_{args[1].degree}"
+            elif name.startswith("ingest") and np.any(args[5] > 0):
+                key = f"{name}_irls"  # robust slots: the reweight passes
+            c["sync"]()
+            t = time.perf_counter()
+            out = fn(*args)
+            c["sync"]()
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t
+            calls[key] = calls.get(key, 0) + 1
+            return out
+        return run
+    eng._solve.fn = timed("solve", eng._solve.fn)
+    eng._sweep.fn = timed("sweep", eng._sweep.fn)
+    for b in eng.buckets:
+        b.ingest.fn = timed("ingest", b.ingest.fn)
+        b.ingest_solve.fn = timed("ingest_solve", b.ingest_solve.fn)
+    steps0 = eng._step_no
+    t0 = time.perf_counter()
+    eng.run()
+    wall = time.perf_counter() - t0
+    steps = eng._step_no - steps0
+    in_steps = sum(spent.values())
+    out = {"breakdown_requests": len(traffic), "breakdown_steps": steps,
+           "breakdown_ms_per_step": wall / steps * 1e3,
+           "step_functions_ms_per_step": in_steps / steps * 1e3,
+           "step_function_ms_per_step": {k: v / steps * 1e3
+                                         for k, v in sorted(spent.items())},
+           "step_function_calls": dict(sorted(calls.items())),
+           "step_function_ms_per_call": {k: v / calls[k] * 1e3
+                                         for k, v in sorted(spent.items())},
+           "host_ms_per_step": (wall - in_steps) / steps * 1e3}
+
+    eng = _serve_engine(c, traffic, specs)
+    steps0 = eng._step_no
+    c["sync"]()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run()
+        c["sync"]()
+    wall = time.perf_counter() - t0
+    steps = eng._step_no - steps0
+    dev_us = kern_us = copy_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue          # host-side ops: their kernels are listed too
+        t = e.self_device_time_total
+        dev_us += t
+        if "moments" in e.key:
+            kern_us += t
+        if "Memcpy" in e.key:
+            copy_us += t
+    require(dev_us > 0 and kern_us > 0,
+            f"phase10 profiler saw {dev_us} us of device time, {kern_us} "
+            "us in the moment kernels")
+    # the busy share is of the unprofiled step: the profiler's own host
+    # overhead stretches the traced run's wall time several-fold
+    out.update({"profiled_ms_per_step": wall / steps * 1e3,
+                "device_ms_per_step": dev_us / steps / 1e3,
+                "moment_kernel_ms_per_step": kern_us / steps / 1e3,
+                "copy_ms_per_step": copy_us / steps / 1e3,
+                "device_busy_share": dev_us / steps / 1e3
+                / out["breakdown_ms_per_step"],
+                "device_busy_share_profiled": dev_us / 1e6 / wall})
+    return out
 
 
 def _host_ms(torch, fn):

@@ -1,17 +1,21 @@
-"""``repro_torch.api`` — one declarative FitSpec and its eager executor.
+"""``repro_torch.api`` — one declarative FitSpec, its executors.
 
 >>> from repro_torch import api
 >>> api.fit(x, y, api.FitSpec(degree=3)).poly      # on CUDA
 >>> api.fit(x, y, api.FitSpec(degree=3), device="cpu")
+>>> st = api.FitSpec(degree=3).streaming(); ...    # O(1)-state streaming
+>>> serve_engine.submit(x, y, spec=spec)           # the fit server
 """
 from repro_torch.api.spec import (FitSpec, FitResult, IRLSOptions,
                                   LSPIAOptions, METHODS, RAW_DATA_SOLVERS)
-from repro_torch.api.executors import fit, spec_from_legacy
+from repro_torch.api.executors import (fit, spec_from_legacy,
+                                       stream_state, stream_result)
 from repro_torch.engine.plan import NumericsPolicy
 from repro_torch.select.sweep import DegreeSearch
 
 __all__ = [
     "FitSpec", "FitResult", "IRLSOptions", "LSPIAOptions", "METHODS",
-    "RAW_DATA_SOLVERS", "fit", "spec_from_legacy", "NumericsPolicy",
+    "RAW_DATA_SOLVERS", "fit", "spec_from_legacy", "stream_state",
+    "stream_result", "NumericsPolicy",
     "DegreeSearch",
 ]

@@ -1,6 +1,13 @@
-"""The eager executor consuming one ``FitSpec`` (port of the eager half of
-``repro.api.executors``).  It lowers through ``engine.plan_fit`` via
-``FitSpec.plan``, so path and numerics selection stay in one place."""
+"""The executors consuming one ``FitSpec`` (port of
+``repro.api.executors`` without its distributed executor):
+
+* ``fit(x, y, spec)``       eager, any spec;
+* ``stream_state(spec)``    (= ``spec.streaming()``) an O(1)-state
+                            ``StreamState`` + ``stream_result``;
+* the fit server's ``submit(x, y, spec=...)`` (``serve.fit_engine``).
+
+Each lowers through ``engine.plan_fit`` (via ``FitSpec.plan``), so path
+and numerics selection stay in one place."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,9 +19,11 @@ from repro_torch import select as select_lib
 from repro_torch.api.spec import FitResult, FitSpec, RAW_DATA_SOLVERS
 from repro_torch.core import basis as basis_lib
 from repro_torch.core import fit as fit_lib
+from repro_torch.core import lspia as lspia_lib
 from repro_torch.core import moments as moments_lib
 from repro_torch.core import robust as robust_lib
 from repro_torch.core import solve as solve_lib
+from repro_torch.core import streaming as streaming_lib
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.engine import plan as plan_lib
 
@@ -134,13 +143,9 @@ def _fit_search(x: torch.Tensor, y: torch.Tensor,
 
 def fit(x, y, spec: FitSpec | None = None, *, weights=None,
         device=None) -> FitResult:
-    """Executor 1: one eager call, any spec but LSPIA's.  ``device=None``
-    means CUDA (raises without it); the tests pass ``device="cpu"``."""
+    """Executor 1: one eager call, any spec.  ``device=None`` means CUDA
+    (raises without it); the tests pass ``device="cpu"``."""
     spec = FitSpec() if spec is None else spec
-    if spec.method == "lspia":
-        raise NotImplementedError(
-            "method='lspia' is not ported yet: ROADMAP Queue 1 item 8 "
-            "(core/lspia.py)")
     dev = resolve_device(device)
     x = as_tensor(x, dev)
     y = as_tensor(y, dev)
@@ -151,5 +156,96 @@ def fit(x, y, spec: FitSpec | None = None, *, weights=None,
         rfit, _ = robust_lib.irls_fit(x, y, weights, spec)
         return FitResult(poly=rfit.poly, iterations=rfit.iterations,
                          converged=rfit.converged)
+    if spec.method == "lspia":
+        lf = lspia_lib.lspia_fit_spec(x, y, weights, None, spec)
+        return FitResult(poly=lf.poly, iterations=lf.iterations,
+                         converged=lf.converged)
     poly, rep = _fit_lse_fixed(x, y, weights, spec)
     return FitResult(poly=poly, report=rep)
+
+
+# ------------------------------------------------------------ streaming
+def stream_state(spec: FitSpec, batch: tuple[int, ...] = (), *,
+                 dtype=None, device=None) -> streaming_lib.StreamState:
+    """Executor 2 state: an O(1) ``StreamState`` wired to the spec, on
+    ``device`` (``None`` means CUDA).
+
+    The accumulation degree is the spec's max degree (a DegreeSearch's
+    ladder nests inside it) and a DegreeSearch's ``folds`` become
+    chunk-round-robin CV partials.  A domain-normalizing spec must PIN the
+    domain (``FitSpec(domain=(shift, scale))``): a stream cannot derive
+    min/max from data it has not seen yet."""
+    if spec.numerics.solver in RAW_DATA_SOLVERS:
+        raise ValueError(
+            f"solver={spec.numerics.solver!r} needs the raw Vandermonde "
+            "rows; the streaming surface only holds moments")
+    dev = resolve_device(device)
+    dtype = dtype or spec.numerics.accum_dtype or torch.float32
+    pol = spec.plan((8,), dtype, weighted=True, device=dev).numerics
+    if pol.normalize and spec.domain is None:
+        raise ValueError(
+            "this spec normalizes the domain (explicitly or by the "
+            "numerics policy's high-degree escalation), but a stream "
+            "cannot derive min/max from unseen data — pin it with "
+            "FitSpec(domain=(shift, scale))")
+    return streaming_lib.StreamState.create(
+        spec.max_degree, batch, decay=spec.decay, dtype=dtype,
+        cv_folds=spec.folds, spec=spec, device=dev)
+
+
+def stream_result(state: streaming_lib.StreamState) -> FitResult:
+    """Read the spec's answer out of a running stream state: fixed-degree
+    solve, moment-space LSPIA, or the scored degree ladder, all O(m²)
+    work on the sufficient statistics, zero re-reads of the stream."""
+    spec = state.spec
+    if spec is None or (not spec.is_search and spec.method != "lspia"):
+        poly = streaming_lib.current_fit(state)
+        return FitResult(poly=poly, report=fit_lib.report_from_moments(
+            state.moments, poly.coeffs))
+    dtype = state.moments.gram.dtype
+    if spec.is_search:
+        m = (state.moments.regularized(spec.ridge) if spec.ridge
+             else state.moments)
+        ds = spec.degree
+        criterion = ds.criterion
+        if criterion is None:
+            criterion = "cv" if state.fold_moments is not None else "aicc"
+        if criterion == "cv" and state.fold_moments is None:
+            raise ValueError("criterion='cv' needs fold partials; create "
+                             "the state via spec.streaming() with "
+                             "DegreeSearch(folds >= 2)")
+        solver = (spec.numerics.solver if spec.numerics.solver != "auto"
+                  else ds.solver)
+        sweep = select_lib.sweep_from_moments(
+            m, fold_moments=state.fold_moments,
+            score_moments=state.moments if spec.ridge else None,
+            solver=solver, fallback=ds.fallback, cond_cap=ds.cond_cap,
+            basis=spec.basis, normalized=spec.domain is not None)
+        dom = spec.domain_or(None, dtype=dtype, device=state.device)
+        sel = select_lib.selection_from_sweep(
+            sweep, criterion, domain=dom, basis=spec.basis, solver=solver,
+            fallback=ds.fallback)
+        # score the winner in its zero-padded ladder layout (the sliced
+        # poly.coeffs would not broadcast against the full-width state)
+        best = torch.as_tensor(sel.best_degree, device=state.device)
+        if best.ndim == 0:
+            padded = sweep.coeffs[..., int(best), :]
+        else:
+            padded = torch.take_along_dim(
+                sweep.coeffs, best.long()[..., None, None], dim=-2)[..., 0, :]
+        return FitResult(poly=sel.poly, selection=sel,
+                         report=fit_lib.report_from_moments(state.moments,
+                                                            padded))
+    # moment-space LSPIA: Richardson on the accumulated normal equations
+    coeffs, cond, conv, it = lspia_lib.lspia_solve_spec(state.moments, spec)
+    diag = fit_lib.FitDiagnostics(condition=cond, fallback_used=~conv,
+                                  solver="lspia", fallback="none")
+    dom = spec.domain_or(basis_lib.Domain.identity(dtype, state.device),
+                         dtype=dtype, device=state.device)
+    poly = fit_lib.Polynomial(coeffs=coeffs, domain_shift=dom.shift,
+                              domain_scale=dom.scale, basis=spec.basis,
+                              diagnostics=diag)
+    return FitResult(poly=poly,
+                     report=fit_lib.report_from_moments(state.moments,
+                                                        coeffs),
+                     iterations=it, converged=conv)

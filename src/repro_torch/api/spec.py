@@ -1,10 +1,15 @@
 """FitSpec — one declarative, validated description of a fit (port of
 ``repro.api.spec``).
 
-``api.fit`` executes fixed-degree and ``DegreeSearch`` specs with
-``method="lse"`` or ``"irls"``.  LSPIA (ROADMAP Queue 1 item 8) is a
-later slice: its options are carried as data and validated here, and
-executing it raises ``NotImplementedError``.
+One frozen, hashable spec consumed unchanged by three executors:
+
+* ``api.fit(x, y, spec)``          eager;
+* ``spec.streaming()``             an O(1)-state ``StreamState`` wired to
+                                   the spec (chunk updates + result);
+* ``serve.FitServeEngine.submit(x, y, spec=...)``  per-request policy on
+                                   the fit server.
+
+The distributed executor (``spec.distributed(mesh)``) is a later slice.
 """
 from __future__ import annotations
 
@@ -47,7 +52,14 @@ class IRLSOptions:
 
 @dataclasses.dataclass(frozen=True)
 class LSPIAOptions:
-    """Options for ``method="lspia"`` (progressive-iterative approximation)."""
+    """Options for ``method="lspia"`` (progressive-iterative approximation).
+
+    The eager executor runs the matrix-free V/Vᵀ iteration
+    (``core.lspia.lspia_fit_spec``); moment-only surfaces (streaming,
+    serving) run the same fixed point as Richardson iteration on the
+    accumulated normal equations (``core.lspia.lspia_solve_moments``).
+    ``momentum`` is the heavy-ball term β·(cₖ − cₖ₋₁); ``staleness`` is
+    read by the asynchronous distributed executor only."""
 
     tol: float = 1e-8
     max_iter: int = 5000
@@ -195,14 +207,24 @@ class FitSpec:
             fallback=pol.fallback, cond_cap=pol.cond_cap, device=device,
             workload=workload)
 
+    def streaming(self, batch: tuple[int, ...] = (), *, dtype=None,
+                  device=None):
+        """An O(1)-state ``StreamState`` wired to this spec on ``device``
+        (``None`` means CUDA).  Chunk data in with
+        ``core.streaming.update(state, x, y)``; read the answer back with
+        ``api.stream_result(state)``."""
+        from repro_torch.api import executors
+        return executors.stream_state(self, batch, dtype=dtype,
+                                      device=device)
+
 
 @dataclasses.dataclass(frozen=True)
 class FitResult:
-    """What ``api.fit`` hands back: ``poly`` (ready to evaluate, carrying
-    its basis and Domain); ``report``, the moment-space quality report
-    (SSE/R/count) of a fixed-degree LSE fit; ``selection``, the scored
-    ladder of a DegreeSearch; ``iterations`` / ``converged``, the loop
-    record of IRLS."""
+    """What every executor hands back: ``poly`` (ready to evaluate,
+    carrying its basis and Domain); ``report``, the moment-space quality
+    report (SSE/R/count) where the surface holds the moments; ``selection``,
+    the scored ladder of a DegreeSearch; ``iterations`` / ``converged``,
+    the loop record of IRLS and LSPIA."""
 
     poly: Any
     report: Any = None

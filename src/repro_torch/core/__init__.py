@@ -18,6 +18,9 @@ from repro_torch.core.fit import (Polynomial, FitReport, StreamedFitReport,
                                   fit_report_streamed, sse_from_moments,
                                   report_from_moments)
 from repro_torch.core.robust import robust_polyfit, RobustFit, HUBER, TUKEY
+from repro_torch.core.lspia import lspia_fit, LSPIAFit
+from repro_torch.core.streaming import (StreamState, update, current_fit,
+                                        current_sse)
 
 # repro_torch.select builds on these modules, so its names are re-exported
 # lazily: an eager import here would be circular
@@ -43,6 +46,8 @@ __all__ = [
     "polyfit", "polyfit_qr", "fit_from_moments", "fit_report",
     "fit_report_streamed", "sse_from_moments", "report_from_moments",
     "robust_polyfit", "RobustFit", "HUBER", "TUKEY",
+    "lspia_fit", "LSPIAFit",
+    "StreamState", "update", "current_fit", "current_sse",
     "select_degree", "DegreeSearch", "Selection", "SweepResult",
     "sweep_from_moments",
 ]

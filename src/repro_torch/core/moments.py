@@ -70,6 +70,12 @@ class Moments:
                        yty=z(batch), count=z(batch), weight_sum=z(batch))
 
 
+def map_fields(fn, *states: Moments) -> Moments:
+    """``fn`` applied field by field across Moments states."""
+    return Moments(*(fn(*(getattr(s, f.name) for s in states))
+                     for f in dataclasses.fields(Moments)))
+
+
 def decay_ladder(n: int, decay, dtype, device=None) -> torch.Tensor:
     """``decay ** [n-1, ..., 1, 0]`` — the newest point gets γ⁰."""
     base = torch.as_tensor(decay, dtype=dtype, device=device)
@@ -112,8 +118,10 @@ def gram_moments(x: torch.Tensor, y: torch.Tensor, degree: int, *,
         v = v.to(accum_dtype)
         y = y.to(accum_dtype)
     wv = v if weights is None else v * weights[..., :, None]
-    gram = torch.einsum("...nj,...nk->...jk", wv, v)
-    vty = torch.einsum("...nj,...n->...j", wv, y)
+    # weights wider than accum_dtype promote the sums, as jnp promotes
+    # (f64 weights into an f32 stream), instead of failing in einsum
+    gram = torch.einsum("...nj,...nk->...jk", wv, v.to(wv.dtype))
+    vty = torch.einsum("...nj,...n->...j", wv, y.to(wv.dtype))
     yty = torch.sum((y if weights is None else weights * y) * y, dim=-1)
     if weights is None:
         count = torch.full(x.shape[:-1], x.shape[-1],

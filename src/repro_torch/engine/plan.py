@@ -16,7 +16,9 @@ Selection heuristics, as in the reference:
   ``kernel_packed``;
 * on CUDA, a single series takes ``kernel_plain`` past
   ``KERNEL_MIN_POINTS`` points;
-* everything else stays ``reference``.
+* everything else stays ``reference``;
+* the ``lspia`` workload (matrix-free V/Vᵀ sweeps, no Gram) always takes
+  ``reference``.
 
 ``backend=`` overrides the device's type for what-if planning ("cuda" is
 the accelerator, where the reference says "tpu").
@@ -172,12 +174,13 @@ def plan_fit(shape: tuple[int, ...], degree: int, *,
     "moments", "select" (the degree-sweep accumulation of ``select/``,
     routed exactly like "moments": its fold axis is an ordinary series
     batch, so the packed kernel takes it on CUDA; the numerics are
-    resolved at the MAX candidate degree, where conditioning is worst) or
+    resolved at the MAX candidate degree, where conditioning is worst),
     "report" (the fused evaluate/residual pass, which monomial fits take
-    on every backend, as in the reference)."""
+    on every backend, as in the reference) or "lspia" (the matrix-free
+    iterative fit: no Gram at all, always the reference basis ops)."""
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r}; expected one of {ENGINES}")
-    if workload not in ("moments", "select", "report"):
+    if workload not in ("moments", "select", "report", "lspia"):
         raise ValueError(f"workload={workload!r}")
     if not shape:
         raise ValueError("x/y must have at least one (series) axis")
@@ -186,10 +189,18 @@ def plan_fit(shape: tuple[int, ...], degree: int, *,
     b = math.prod(batch)
     if backend is None:
         backend = torch.device(device).type if device is not None else "cpu"
-    numerics = resolve_numerics(degree, basis=basis, dtype=dtype,
-                                accum_dtype=accum_dtype, normalize=normalize,
-                                compensated=compensated, solver=solver,
-                                fallback=fallback, cond_cap=cond_cap)
+    if workload == "lspia":
+        # the matrix-free workload has no normal-equation solve to plan
+        numerics = NumericsPolicy(accum_dtype=accum_dtype,
+                                  compensated=compensated,
+                                  normalize=normalize, solver="lspia",
+                                  fallback=None, cond_cap=cond_cap)
+    else:
+        numerics = resolve_numerics(degree, basis=basis, dtype=dtype,
+                                    accum_dtype=accum_dtype,
+                                    normalize=normalize,
+                                    compensated=compensated, solver=solver,
+                                    fallback=fallback, cond_cap=cond_cap)
     common = dict(degree=degree, basis=basis, batch=batch, n=n,
                   weighted=weighted, numerics=numerics)
 
@@ -203,6 +214,12 @@ def plan_fit(shape: tuple[int, ...], degree: int, *,
         if not _kernel_degree_ok(degree):
             raise ValueError(f"degree {degree} exceeds the kernel tile "
                              "(degree + 2 must be <= 128)")
+
+    if workload == "lspia":
+        # matrix-free: basis matvecs only, no Gram to accumulate (a forced
+        # kernel engine was validated above all the same)
+        return FitPlan(path=REFERENCE, reason="lspia: matrix-free basis "
+                       "matvecs (never forms the Gram)", **common)
 
     if workload == "report":
         if engine == "reference" or not monomial:

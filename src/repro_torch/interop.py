@@ -1,10 +1,10 @@
 """Carry state across from the JAX reference package, and back.
 
-The reference's ``Moments``, ``Domain``, ``Polynomial`` and ``FitSpec``
-are read by their field names, with every array taken through
+The reference's ``Moments``, ``Domain``, ``Polynomial``, ``FitSpec`` and
+``StreamState`` are read by their field names, with every array taken through
 ``numpy.asarray``: this module never imports the reference.  The tests feed
 the reference's state through it so that both packages solve the same
-thing; later slices carry ``Moments`` snapshots through it too.
+thing, and start both from the same stream state.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from repro_torch.api.spec import FitSpec, IRLSOptions, LSPIAOptions
 from repro_torch.core.basis import Domain
 from repro_torch.core.fit import Polynomial
 from repro_torch.core.moments import Moments
+from repro_torch.core.streaming import StreamState
 from repro_torch.device import resolve_device
 from repro_torch.engine.plan import NumericsPolicy
 from repro_torch.select.sweep import DegreeSearch
@@ -73,6 +74,18 @@ def fit_spec(ref) -> FitSpec:
                               for f in dataclasses.fields(LSPIAOptions)}),
         domain=ref.domain, numerics=numerics, decay=ref.decay,
         ridge=ref.ridge, engine=ref.engine)
+
+
+def stream_state(ref_or_snapshot, *, spec=None, device=None) -> StreamState:
+    """A reference ``StreamState``, or its ``snapshot()`` dict, as the
+    port's.  ``spec`` (a port FitSpec) defaults to the reference state's
+    own spec carried across; a snapshot carries none."""
+    snap = ref_or_snapshot
+    if not isinstance(snap, dict):
+        if spec is None and getattr(snap, "spec", None) is not None:
+            spec = fit_spec(snap.spec)
+        snap = snap.snapshot()
+    return StreamState.restore(snap, spec=spec, device=device)
 
 
 def to_numpy(obj) -> dict:

@@ -13,7 +13,6 @@ O(K·M⁴) tiny solves, independent of n.
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 
 import torch
@@ -22,12 +21,6 @@ from repro_torch.core import basis as basis_lib
 from repro_torch.core import fit as fit_lib
 from repro_torch.core import moments as moments_lib
 
-_FIELDS = tuple(f.name for f in dataclasses.fields(moments_lib.Moments))
-
-
-def _map(fn, *states: moments_lib.Moments) -> moments_lib.Moments:
-    return moments_lib.Moments(*(fn(*(getattr(s, f) for s in states))
-                                 for f in _FIELDS))
 
 
 def fold_moments(x: torch.Tensor, y: torch.Tensor, k: int, degree: int, *,
@@ -69,7 +62,7 @@ def fold_moments(x: torch.Tensor, y: torch.Tensor, k: int, degree: int, *,
 
 def sum_folds(folds: moments_lib.Moments) -> moments_lib.Moments:
     """Collapse the leading fold axis: the total state the sweep solves."""
-    return _map(lambda a: torch.sum(a, dim=0), folds)
+    return moments_lib.map_fields(lambda a: torch.sum(a, dim=0), folds)
 
 
 def complement_moments(folds: moments_lib.Moments,
@@ -78,7 +71,7 @@ def complement_moments(folds: moments_lib.Moments,
     """Training state of every fold at once: ``total − fold_j``."""
     if total is None:
         total = sum_folds(folds)
-    return _map(lambda t, f: t - f, total, folds)
+    return moments_lib.map_fields(lambda t, f: t - f, total, folds)
 
 
 def cv_scores(folds: moments_lib.Moments, *, solver: str = "auto",

@@ -164,3 +164,109 @@ def test_cuda_ring_through_ops_and_tuner(cuda):
     for f in ("gram", "vty", "yty", "count", "weight_sum"):
         assert torch.equal(getattr(m0, f), getattr(m2, f)), f
     assert m2.gram.shape == (3, 4, 4, 4)
+
+
+@pytest.mark.cuda
+def test_cuda_stream_snapshot_restore_is_bit_equal(cuda):
+    from repro_torch import api
+    from repro_torch.core import streaming
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.rand(64, 8 * 4096, generator=g, device=cuda) * 4 - 2
+    y = 0.5 - x + 0.75 * x ** 3 + 0.1 * torch.randn(
+        x.shape, generator=g, device=cuda)
+    spec = api.FitSpec(degree=api.DegreeSearch(max_degree=5, folds=3),
+                       decay=0.9999, domain=(0.0, 0.5))
+    st = api.stream_state(spec, (64,))
+    assert streaming.update_plan(st, (64, 4096), x.dtype).path \
+        == "kernel_packed"
+    K.reset_launch_counts()
+    snap = None
+    for i in range(8):
+        st = streaming.update(st, x[:, i * 4096:(i + 1) * 4096],
+                              y[:, i * 4096:(i + 1) * 4096])
+        if i == 3:
+            snap = st.snapshot()
+    assert K.launch_counts()["moments_packed"] == 8
+    rs = streaming.StreamState.restore(snap, spec=spec)
+    for i in range(4, 8):
+        rs = streaming.update(rs, x[:, i * 4096:(i + 1) * 4096],
+                              y[:, i * 4096:(i + 1) * 4096])
+    for a, b in ((rs.moments, st.moments), (rs.fold_moments,
+                                            st.fold_moments)):
+        for f in ("gram", "vty", "yty", "count", "weight_sum"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert np.array_equal(api.stream_result(rs).best_degree,
+                          api.stream_result(st).best_degree)
+
+
+@pytest.mark.cuda
+def test_cuda_stream_plans_by_shape(cuda):
+    """A batch of series takes the packed kernel, one long series the
+    plain kernel, one short series the reference path: on CUDA tensors,
+    with no device argument."""
+    from repro_torch import api
+    from repro_torch.core import streaming
+    x = torch.rand(1 << 16, device=cuda) * 2 - 1
+    y = 1 + x - x ** 3
+    for shape, path, kernel in (((4, 1 << 14), "kernel_packed",
+                                 "moments_packed"),
+                                ((1 << 16,), "kernel_plain", "moments_plain"),
+                                ((1000,), "reference", None)):
+        st = api.stream_state(api.FitSpec(degree=3), shape[:-1])
+        assert streaming.update_plan(st, shape, x.dtype).path == path
+        K.reset_launch_counts()
+        st = streaming.update(st, x[:shape[-1]].expand(shape),
+                              y[:shape[-1]].expand(shape))
+        counts = K.launch_counts()
+        assert sum(counts.values()) == (kernel is not None)
+        if kernel:
+            assert counts[kernel] == 1
+        res = api.stream_result(st)
+        np.testing.assert_allclose(res.coeffs.reshape(-1, 4)[0].cpu().numpy(),
+                                   [1.0, 1.0, 0.0, -1.0], atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_fit_server_ingest_solve_bit_equals_solve(cuda):
+    """Every bucket ingest on the card is one packed-kernel launch (plus
+    stream_sweeps − 1 per robust step), and the fused ingest+solve answers
+    the default spec with the bits of the standalone solve."""
+    from repro_torch import api, engine
+    from repro_torch.core import streaming
+    from repro_torch.serve import FitServeConfig, FitServeEngine
+    eng = FitServeEngine(FitServeConfig(degree=3, n_slots=8,
+                                        buckets=(256, 4096)))
+    for b in eng.buckets:
+        assert streaming.update_plan(b.state, (8, b.width),
+                                     torch.float32).path == "kernel_packed"
+    warm = eng.warmup()
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(40):
+        n = int(rng.integers(8, 9000))
+        x = rng.uniform(-2, 2, n).astype(np.float32)
+        y = (1 + x - x ** 3 + 0.01 * rng.normal(size=n)).astype(np.float32)
+        spec = api.FitSpec(degree=3, method="irls") if i % 5 == 4 else None
+        reqs.append(eng.submit(x, y, spec=spec))
+    engine.reset_moment_counter()
+    K.reset_launch_counts()
+    eng.run()
+    assert all(r.done for r in reqs)
+    assert K.launch_counts()["moments_packed"] \
+        == engine.moment_counter()["calls"] > 0
+    assert eng.compiled_executables() == warm + 1     # the IRLS spec
+    for r in reqs:
+        if r.spec.method == "lse":
+            np.testing.assert_allclose(r.coeffs, [1, 1, 0, -1], atol=2e-2)
+    # the last state of the widest bucket, solved standalone
+    b = eng.buckets[-1]
+    fused = eng.buckets[-1].ingest_solve.fn
+    st = b.state
+    args = (torch.zeros(8, b.width, device=cuda),) * 3 + (
+        torch.ones(8, device=cuda), np.zeros(8, np.float32),
+        torch.zeros(8, dtype=torch.int32, device=cuda),
+        torch.ones(8, device=cuda))
+    st2, out = fused(st, *args)
+    alone = eng._solve(st2, eng.fixed_spec)
+    for a, c in zip(out, alone):
+        assert torch.equal(a, c)

@@ -38,7 +38,9 @@ def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, importlib\n"
             "for m in ('repro_torch', 'repro_torch.api', 'repro_torch.core',"
             " 'repro_torch.engine', 'repro_torch.kernels.ops',"
-            " 'repro_torch.kernels.build', 'repro_torch.interop'):\n"
+            " 'repro_torch.kernels.build', 'repro_torch.interop',"
+            " 'repro_torch.serve', 'repro_torch.obs',"
+            " 'repro_torch.launch.serve'):\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"

@@ -30,7 +30,7 @@ def _outcome(fn):
 
 
 @pytest.mark.parametrize("engine", teng.ENGINES)
-@pytest.mark.parametrize("workload", ["moments", "select", "report"])
+@pytest.mark.parametrize("workload", ["moments", "select", "report", "lspia"])
 @pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("npd", [np.float32, np.float64])
 def test_plan_matches_reference(engine, workload, backend, npd):

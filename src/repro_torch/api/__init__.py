@@ -5,9 +5,11 @@
 >>> api.fit(x, y, api.FitSpec(degree=3), device="cpu")
 >>> st = api.FitSpec(degree=3).streaming(); ...    # O(1)-state streaming
 >>> serve_engine.submit(x, y, spec=spec)           # the fit server
+>>> fleet.submit(x, y, spec=spec, service=api.ServicePolicy(deadline=50))
 """
 from repro_torch.api.spec import (FitSpec, FitResult, IRLSOptions,
-                                  LSPIAOptions, METHODS, RAW_DATA_SOLVERS)
+                                  LSPIAOptions, METHODS, RAW_DATA_SOLVERS,
+                                  ServicePolicy)
 from repro_torch.api.executors import (fit, spec_from_legacy,
                                        stream_state, stream_result)
 from repro_torch.engine.plan import NumericsPolicy
@@ -15,7 +17,7 @@ from repro_torch.select.sweep import DegreeSearch
 
 __all__ = [
     "FitSpec", "FitResult", "IRLSOptions", "LSPIAOptions", "METHODS",
-    "RAW_DATA_SOLVERS", "fit", "spec_from_legacy", "stream_state",
+    "RAW_DATA_SOLVERS", "ServicePolicy", "fit", "spec_from_legacy", "stream_state",
     "stream_result", "NumericsPolicy",
     "DegreeSearch",
 ]

@@ -7,7 +7,8 @@ One frozen, hashable spec consumed unchanged by three executors:
 * ``spec.streaming()``             an O(1)-state ``StreamState`` wired to
                                    the spec (chunk updates + result);
 * ``serve.FitServeEngine.submit(x, y, spec=...)``  per-request policy on
-                                   the fit server.
+                                   the fit server (and on the fleet, with
+                                   a ``ServicePolicy`` beside it).
 
 The distributed executor (``spec.distributed(mesh)``) is a later slice.
 """
@@ -79,6 +80,40 @@ class LSPIAOptions:
                              f"stability), got {self.momentum}")
         if self.staleness < 0:
             raise ValueError(f"staleness must be >= 0, got {self.staleness}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServicePolicy:
+    """Per-request serving policy: how hard the fleet fights for this fit.
+
+    Attached at submission (``fleet.submit(x, y, spec=..., service=...)``)
+    rather than inside ``FitSpec``: the *fitting question* is transport-
+    free, while retry/deadline/hedging describe how one particular
+    submission rides the fault-tolerant fleet (``repro_torch.serve.fleet``).
+
+    ``retry_timeout`` is the no-progress window (virtual ticks) before a
+    chunk or solve message is resent to the same worker; ``max_retries``
+    bounds resends *and* cross-worker replays per request before it is
+    failed; ``hedge`` opts the request into duplicate dispatch when its
+    worker is verdicted a straggler; ``deadline`` (ticks from admission,
+    ``None`` = never) fails the request outright when serving takes too
+    long — the caller prefers an error over a stale answer."""
+
+    max_retries: int = 4
+    retry_timeout: int = 8
+    hedge: bool = True
+    deadline: int | None = None
+
+    def __post_init__(self):
+        if self.max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got "
+                             f"{self.max_retries}")
+        if self.retry_timeout < 1:
+            raise ValueError(f"retry_timeout must be >= 1, got "
+                             f"{self.retry_timeout}")
+        if self.deadline is not None and self.deadline < 1:
+            raise ValueError(f"deadline must be >= 1 (or None), got "
+                             f"{self.deadline}")
 
 
 def _as_domain_tuple(domain) -> tuple[float, float] | None:

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Any
 
 import torch
@@ -271,18 +272,22 @@ def plan_fit(shape: tuple[int, ...], degree: int, *,
 
 # counter on moment-producing calls: every compute_moments invocation and
 # the points it touches (the one-data-pass contract of degree selection is
-# asserted against it)
+# asserted against it); the lock keeps it exact when fleet workers pump in
+# threads
 _MOMENT_COUNTER = {"calls": 0, "points": 0}
+_MOMENT_COUNTER_LOCK = threading.Lock()
 
 
 def reset_moment_counter() -> None:
-    _MOMENT_COUNTER["calls"] = 0
-    _MOMENT_COUNTER["points"] = 0
+    with _MOMENT_COUNTER_LOCK:
+        _MOMENT_COUNTER["calls"] = 0
+        _MOMENT_COUNTER["points"] = 0
 
 
 def moment_counter() -> dict:
     """Snapshot of the moment-pass counter: {"calls": int, "points": int}."""
-    return dict(_MOMENT_COUNTER)
+    with _MOMENT_COUNTER_LOCK:
+        return dict(_MOMENT_COUNTER)
 
 
 def compute_moments(plan: FitPlan, x: torch.Tensor, y: torch.Tensor,
@@ -290,8 +295,9 @@ def compute_moments(plan: FitPlan, x: torch.Tensor, y: torch.Tensor,
     """Execute a plan's moment accumulation.  Returns ``core.Moments``.
 
     ``x`` must already be domain-mapped if ``plan.numerics.normalize``."""
-    _MOMENT_COUNTER["calls"] += 1
-    _MOMENT_COUNTER["points"] += math.prod(x.shape)
+    with _MOMENT_COUNTER_LOCK:
+        _MOMENT_COUNTER["calls"] += 1
+        _MOMENT_COUNTER["points"] += math.prod(x.shape)
     if plan.uses_kernel:
         from repro_torch.kernels import ops as kernel_ops
         return kernel_ops.moments(

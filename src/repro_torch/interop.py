@@ -1,7 +1,7 @@
 """Carry state across from the JAX reference package, and back.
 
-The reference's ``Moments``, ``Domain``, ``Polynomial``, ``FitSpec`` and
-``StreamState`` are read by their field names, with every array taken through
+The reference's ``Moments``, ``Domain``, ``Polynomial``, ``FitSpec``,
+``ServicePolicy`` and ``StreamState`` are read by their field names, with every array taken through
 ``numpy.asarray``: this module never imports the reference.  The tests feed
 the reference's state through it so that both packages solve the same
 thing, and start both from the same stream state.
@@ -13,7 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.api.spec import FitSpec, IRLSOptions, LSPIAOptions
+from repro_torch.api.spec import (FitSpec, IRLSOptions, LSPIAOptions,
+                                  ServicePolicy)
 from repro_torch.core.basis import Domain
 from repro_torch.core.fit import Polynomial
 from repro_torch.core.moments import Moments
@@ -74,6 +75,13 @@ def fit_spec(ref) -> FitSpec:
                               for f in dataclasses.fields(LSPIAOptions)}),
         domain=ref.domain, numerics=numerics, decay=ref.decay,
         ridge=ref.ridge, engine=ref.engine)
+
+
+def service_policy(ref) -> ServicePolicy:
+    """The reference ServicePolicy's fields as the port's (validated
+    again by the port's own checks)."""
+    return ServicePolicy(**{f.name: getattr(ref, f.name)
+                            for f in dataclasses.fields(ServicePolicy)})
 
 
 def stream_state(ref_or_snapshot, *, spec=None, device=None) -> StreamState:

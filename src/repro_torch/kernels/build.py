@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -136,7 +137,17 @@ def load(path) -> ctypes.CDLL:
     return lib
 
 
+_LIBRARY_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library of this checkout, built on first use."""
+def _library() -> ctypes.CDLL:
     return load(build()[0])
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library of this checkout, built on first use.
+    Threads that ask at once wait for one build (``lru_cache`` alone
+    would let each of them run nvcc on the same files)."""
+    with _LIBRARY_LOCK:
+        return _library()

@@ -37,6 +37,8 @@ and the packed tile's cross-series blocks are MXU artefacts.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 K_PAD = 128                   # the reference tile: degree + 2 <= 128
@@ -56,18 +58,27 @@ REPORT_NAMES = ("sw", "sy", "syy", "sf", "sff", "syf", "sse")
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _ACC_CODES = {torch.float32: 0, torch.float64: 1}
 
-# launches per kernel since the last reset (read by chip_smoke.py and tests)
+# launches per kernel since the last reset (read by chip_smoke.py and tests);
+# the lock keeps the counts exact when fleet workers launch from threads
 _LAUNCHES = {"moments_plain": 0, "moments_packed": 0,
              "moments_packed_ring": 0, "fused_report": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
-    return dict(_LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(_LAUNCHES)
+
+
+def _count_launch(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        _LAUNCHES[name] += 1
 
 
 def packing_factor(degree: int) -> int:
@@ -190,7 +201,7 @@ def _launch_moments(layout: int, name: str, x, y, w, degree: int,
             err = lib.repro_moments_ring(*codes, *common, block_n, nbuf,
                                          *tail)
     _raise_on(err, name)
-    _LAUNCHES[name] += 1
+    _count_launch(name)
     return out
 
 
@@ -267,5 +278,5 @@ def fused_report(x, y, w, coeffs, *, accum_dtype=torch.float32
             y.data_ptr(), _ptr(w), coeffs.data_ptr(), b, n, degree, s,
             part.data_ptr(), out.data_ptr(), stream)
     _raise_on(err, "fused_report")
-    _LAUNCHES["fused_report"] += 1
+    _count_launch("fused_report")
     return out

@@ -347,7 +347,8 @@ def make_spec_sweep(pool_degree: int) -> StepFunction:
     return StepFunction(sweep)
 
 
-def _host(a) -> np.ndarray:
+def host(a) -> np.ndarray:
+    """A step function's output on the host, as numpy."""
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
         else np.asarray(a)
 
@@ -371,12 +372,12 @@ def fill_fixed_result(req: FitRequest, spec, solved, s=None) -> None:
 def auto_outputs(sw, r_ladder, count) -> dict:
     """One ``make_spec_sweep`` output on the host, once per solve (the
     per-request fill then just indexes)."""
-    scores = {name: _host(sw.scores.by_name(name))
+    scores = {name: host(sw.scores.by_name(name))
               for name in select_lib.MOMENT_CRITERIA + ("sse", "r2")}
-    return {"scores": scores, "ladder": _host(sw.coeffs),
-            "cond": _host(sw.condition),
-            "fb": _host(sw.fallback_used),
-            "r": _host(r_ladder), "count": _host(count)}
+    return {"scores": scores, "ladder": host(sw.coeffs),
+            "cond": host(sw.condition),
+            "fb": host(sw.fallback_used),
+            "r": host(r_ladder), "count": host(count)}
 
 
 def fill_auto_result(req: FitRequest, spec, outs: dict, criterion: str,
@@ -648,7 +649,7 @@ class FitServeEngine:
         for spec, slots in fixed_groups.items():
             out = (fused if spec == self.fixed_spec
                    else self._solve(b.state, spec))
-            solved = tuple(_host(a) for a in out)
+            solved = tuple(host(a) for a in out)
             for s in slots:
                 req = b.slot_req[s]
                 fill_fixed_result(req, spec, solved, s)

@@ -270,3 +270,114 @@ def test_cuda_fit_server_ingest_solve_bit_equals_solve(cuda):
     alone = eng._solve(st2, eng.fixed_spec)
     for a, c in zip(out, alone):
         assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", [1, 3, 20])
+def test_cuda_packed_kernel_at_one_point_per_series(cuda, degree):
+    """The fleet's step-time monitor updates (n_workers, 1) batches, which
+    the planner gives the packed kernel: one point per series."""
+    from repro_torch.core import streaming
+    g = torch.Generator(device=cuda).manual_seed(degree)
+    x = torch.rand(4, 1, generator=g, device=cuda) * 4 - 2
+    y = torch.randn(4, 1, generator=g, device=cuda)
+    w = torch.tensor([[1.0], [0.0], [0.5], [2.0]], device=cuda)
+    for wc in (None, w):
+        want = K.moments_block_plain(x, y, wc, degree, torch.float64)
+        for fn in (K.moments_plain, K.moments_packed):
+            got = fn(x, y, wc, degree=degree)
+            err = (got.double() - want).abs().amax((1, 2))
+            assert bool((err <= 1e-5 * want.abs().amax((1, 2))).all())
+    st = streaming.StreamState.create(1, (4,), decay=0.98)
+    assert streaming.update_plan(st, (4, 1), torch.float32).path \
+        == "kernel_packed"
+
+
+def _fleet_traffic(k, lo, hi, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(k):
+        n = int(rng.integers(lo, hi))
+        x = rng.uniform(-2, 2, n).astype(np.float32)
+        y = (0.5 - x + 0.25 * x ** 2 + 0.75 * x ** 3
+             + 0.1 * rng.normal(size=n)).astype(np.float32)
+        out.append((x, y))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_ingest_plans_the_plain_kernel(cuda):
+    """At chunk_width 2^16 every fleet ingest is one weighted moments_plain
+    launch; results leave the worker as host numpy."""
+    from repro_torch.core import streaming
+    from repro_torch.serve import fit_engine as fe
+    from repro_torch.serve.fleet import FleetWorker, Ingest, Solve
+    specs = fe.derive_pool_specs(fe.FitServeConfig(degree=3))
+    wk = FleetWorker(0, specs, torch.float32, fe.make_spec_solve(3),
+                     fe.make_spec_sweep(3))
+    st = streaming.StreamState.create(3, spec=specs.fixed)
+    assert streaming.update_plan(st, (1 << 16,), torch.float32).path \
+        == "kernel_plain"
+    (x, y), = _fleet_traffic(1, 70000, 70001)
+    w = np.zeros(1 << 17, np.float32)
+    w[:len(x)] = 1.0
+    xp = np.zeros_like(w)
+    yp = np.zeros_like(w)
+    xp[:len(x)], yp[:len(y)] = x, y
+    K.reset_launch_counts()
+    for seq in (1, 2):
+        sl = slice((seq - 1) << 16, seq << 16)
+        wk.process(Ingest(1, seq, xp[sl], yp[sl], w[sl], specs.fixed), seq)
+    assert K.launch_counts()["moments_plain"] == 2
+    [res] = wk.process(Solve(1, specs.fixed), 3)
+    assert all(isinstance(a, np.ndarray) for a in res.fixed)
+    assert float(res.fixed[3]) == len(x)
+    np.testing.assert_allclose(res.fixed[0], [0.5, -1, 0.25, 0.75],
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_chaos_parity(cuda):
+    """Under a seeded schedule of every fault kind the fleet on the card
+    returns coefficients bit-equal to its fault-free run, and the parallel
+    pump equals the serial one."""
+    from repro_torch.runtime import FAULT_KINDS, ChaosSchedule
+    from repro_torch.serve import FitFleet, FitServeConfig, FleetConfig
+    traffic = _fleet_traffic(24, 1 << 15, 1 << 18)
+
+    def run(chaos=None, parallel=False):
+        fleet = FitFleet(FleetConfig(
+            fit=FitServeConfig(degree=3), n_workers=4, chunk_width=1 << 16,
+            chaos=chaos, straggler_threshold=2.0, parallel_pump=parallel))
+        reqs = [fleet.submit(x, y) for x, y in traffic]
+        reqs.append(fleet.submit(*traffic[0], degree="auto"))
+        h = fleet.submit_async_lspia(*traffic[1], n_shards=4)
+        K.reset_launch_counts()
+        fleet.run(max_ticks=20_000)
+        fleet.close()
+        return fleet, reqs, h, K.launch_counts()
+
+    base, breqs, bh, blaunch = run()
+    chaos = ChaosSchedule.parse("crash=1,stall=1,poison=1,drop=1,delay=1",
+                                0, 4, horizon=16)
+    fleet, reqs, h, launches = run(chaos)
+    assert {e.kind for w in fleet.workers for e in w.faults_applied} \
+        == set(FAULT_KINDS)
+    assert fleet.stats["failed"] == 0 and fleet.stats["worker_deaths"] == 1
+    assert blaunch["moments_plain"] > 0 and launches["moments_plain"] > 0
+    for b, c in zip(breqs, reqs):
+        assert c.done and c.failed is None and c.count == b.count
+        np.testing.assert_array_equal(c.coeffs, b.coeffs)
+    np.testing.assert_array_equal(h.coeffs, bh.coeffs)
+    _, preqs, ph, plaunch = run(parallel=True)
+    assert plaunch == blaunch
+    for b, c in zip(breqs, preqs):
+        np.testing.assert_array_equal(c.coeffs, b.coeffs)
+    np.testing.assert_array_equal(ph.coeffs, bh.coeffs)
+
+
+@pytest.mark.cuda
+def test_cuda_launch_serve_fleet_assert_parity(cuda, capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--workload", "fleet", "--assert-parity"]) == 0
+    assert "parity OK" in capsys.readouterr().out

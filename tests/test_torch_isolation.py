@@ -40,7 +40,9 @@ def test_importing_the_port_leaves_jax_unloaded():
             " 'repro_torch.engine', 'repro_torch.kernels.ops',"
             " 'repro_torch.kernels.build', 'repro_torch.interop',"
             " 'repro_torch.serve', 'repro_torch.obs',"
-            " 'repro_torch.launch.serve'):\n"
+            " 'repro_torch.launch.serve', 'repro_torch.runtime',"
+            " 'repro_torch.train', 'repro_torch.serve.fleet',"
+            " 'repro_torch.core.distributed'):\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"

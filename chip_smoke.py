@@ -58,6 +58,15 @@ kernels from ``src/repro_torch/kernels/csrc``, then:
            series of 2^26 points in 4 shards, fault-free and with one shard
            stalled: both within 1e-3 of the float64 LSE fit, updates made
            during the stall
+  phase 13 the mesh executor (spec.distributed, core.make_distributed_fit)
+           on one series of 2^28 points: (a) a 1-rank NCCL mesh runs LSE
+           (normalized), Huber IRLS on phase 7's outliers, phase 9's LSPIA,
+           DegreeSearch(8, 5) and decay 1 - 2^-24 on moments_plain (the
+           fold stack on the kernel plan_fit picks), each against eager
+           api.fit; (b) 4 gloo ranks on the one card, each holding its
+           2^26-point block of the same series, run LSE, decay, IRLS and
+           the search: bit-equal across ranks, against (a), count 2^28,
+           the all-reduce payload the same at 2^26 and 2^25 points per rank
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure, or when
@@ -67,10 +76,13 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -390,6 +402,7 @@ def main() -> int:
     launches10, serve_out = phase10(ctx)
     launches11, fleet_out = phase11(ctx)
     launches12, async_out = phase12(ctx)
+    launches13, mesh_out = phase13(ctx)
 
     # ----------------------------------------------------------------- report
     replaces = {   # the TPU kernel bodies in the JAX reference
@@ -407,7 +420,7 @@ def main() -> int:
     launches = {k: sum(run[k] for run in (launches2, launches3, launches5,
                                           launches6, launches7, launches8,
                                           launches9, launches10, launches11,
-                                          launches12))
+                                          launches12, launches13))
                 for k in launches2}
     kernels = []
     for name in ("moments_plain", "moments_packed", "moments_packed_ring",
@@ -432,14 +445,18 @@ def main() -> int:
             "of_copy_rate": r["bytes"] / (r["ms"] * 1e-3) / copy_bw,
             "copy_bound_ms": r["bytes"] / copy_bw * 1e3,
             **{k: r[k] for k in ("kahan_ms", "block_n", "nbuf",
-                                 "packed_ms_same_run") if k in r}})
+                                 "packed_ms_same_run") if k in r},
+            # phase 13's fold stack, (5, 2^28 / 5) at degree 8
+            **({"phase13_fold_max_abs_err": mesh_out["fold_max_abs_err"],
+                "phase13_fold_max_rel_err": mesh_out["fold_max_rel_err"]}
+               if name == mesh_out["fold_kernel"] else {})})
     log(f"end to end: api.fit phase2 {fit2_ms:.3f} ms, phase3 "
         f"{fit3_ms:.3f} ms, phase6 selection {select_ms:.3f} ms, phase7 "
         f"IRLS {json.dumps(irls_ms)}; phase8 streaming "
         f"{json.dumps(stream_ms)}; phase9 LSPIA {json.dumps(lspia_ms)}; "
         f"phase10 serving {json.dumps(serve_out)}; phase11 fleet "
         f"{json.dumps(fleet_out)}; phase12 async LSPIA "
-        f"{json.dumps(async_out)}; copy "
+        f"{json.dumps(async_out)}; phase13 mesh {json.dumps(mesh_out)}; copy "
         f"{copy_bw / 1e9:.1f} GB/s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -1557,6 +1574,443 @@ def phase12(c):
     return launches, out
 
 
+# phase 13: the mesh executor on one series of 2^28 points (1 GiB each of
+# x, y and the weights), drawn from a seed of its own so that the 1-rank
+# NCCL run and every gloo rank see the same bits
+MESH_N = 1 << 28
+MESH_RANKS = 4
+MESH_SEED = 13
+MESH_FOLDS = 5
+MESH_TIMEOUT = 600               # seconds for the gloo ranks (no build)
+MESH_DECAY = 1.0 - 2.0 ** -24    # the largest float32 below 1
+# tests/test_api.py MATRIX_CELLS: the slack beyond the κ-scaled bound of
+# the iterative cells
+MESH_SLACK = {"lse": 0.0, "irls": 1e-4, "lspia": 5e-3, "search": 0.0,
+              "decay": 0.0}
+MESH_GLOO = ("lse", "decay", "irls", "search")
+
+
+def _mesh_series(torch, core, dev, n):
+    """Phase 13's global series from MESH_SEED: x ~ U(-2, 2), the planted
+    cubic + N(0, 0.1²) as in phase 2, and the same y with 10% of its points
+    thrown up by U(5, 20) as in phase 7 (for IRLS)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MESH_SEED)
+    x = torch.rand((n,), generator=gen, device=dev) * 4.0 + -2.0
+    y = core.evaluate(torch.tensor(PLANTED, device=dev), x) + 0.1 * \
+        torch.randn((n,), generator=gen, device=dev)
+    hit = torch.rand((n,), generator=gen, device=dev) < 0.1
+    yo = torch.where(hit, y + (torch.rand((n,), generator=gen, device=dev)
+                               * 15.0 + 5.0), y)
+    return x, y, yo
+
+
+def _mesh_spec(api, torch, name):
+    """The FitSpec of each phase-13 question ("lse" is the spec that
+    make_distributed_fit(mesh, 3, normalize=True) builds)."""
+    return {
+        "lse": api.FitSpec(degree=3, numerics=api.NumericsPolicy(
+            accum_dtype=torch.float32, normalize=True, solver="auto")),
+        "irls": api.FitSpec(degree=3, method="irls"),
+        "lspia": api.FitSpec(degree=3, method="lspia",
+                             lspia=api.LSPIAOptions(**LSPIA_OPTIONS),
+                             domain=(0.0, 0.5)),
+        "search": api.FitSpec(degree=api.DegreeSearch(max_degree=8,
+                                                      folds=MESH_FOLDS)),
+        "decay": api.FitSpec(degree=3, decay=MESH_DECAY)}[name]
+
+
+def _mesh_fit(torch, api, core, name, mesh, x, y):
+    """One phase-13 question through the mesh: host values of the answer
+    and the wall time (host clock, synchronized)."""
+    sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    if name == "lse":
+        poly, m = core.make_distributed_fit(mesh, 3, normalize=True)(x, y)
+        best, it, count = -1, -1, m.count
+    else:
+        res = _mesh_spec(api, torch, name).distributed(mesh)(x, y)
+        poly, count = res.poly, res.report.count if res.report else -1.0
+        best = -1 if res.selection is None else int(res.best_degree)
+        it = -1 if res.iterations is None else int(res.iterations)
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    return {"coeffs": poly.coeffs.cpu().numpy(), "best": best,
+            "iterations": it, "count": float(count),
+            "cond": float(poly.diagnostics.condition.max()),
+            "domain": np.array([float(poly.domain_shift),
+                                float(poly.domain_scale)]),
+            "wall_ms": wall}
+
+
+def _mesh_moments(torch, api, name, mesh, x, y):
+    """[count, weight_sum, yty] of a fixed-degree question's all-reduced
+    moments (the spec executor's runner; a FitResult keeps only the
+    report).  Under decay, weight_sum = Σγ^age and yty = Σγ^age·y² move
+    with every point's global age."""
+    from repro_torch.core import distributed
+    runner, _ = distributed.make_spec_executor(_mesh_spec(api, torch, name),
+                                               mesh)
+    m = runner(x, y)[1]
+    return np.array([float(m.count), float(m.weight_sum), float(m.yty)])
+
+
+def _fold_rel_err(torch, K, xt, y, folds, degree):
+    """select.fold_moments (the kernel plan_fit picks for the (folds,
+    n/folds) stack) against a chunked float64 plain version, as in phase
+    6: (max|Δ|, max over folds of max|Δ|/max|ref|)."""
+    from repro_torch import select
+    fm = select.fold_moments(xt, y, folds, degree)
+    n = xt.shape[-1]
+    nper = -(-n // folds)
+
+    def to_folds(a):
+        a = torch.nn.functional.pad(a, (0, nper * folds - n))
+        return a.reshape(nper, folds).movedim(-1, 0)
+
+    xf, yf = to_folds(xt), to_folds(y)
+    wf = to_folds(torch.ones_like(xt))
+    g64 = chunked(torch, lambda lo, hi: K.moments_block_plain(
+        xf[:, lo:hi], yf[:, lo:hi], wf[:, lo:hi], degree, torch.float64),
+        nper, 1 << 22)
+    m1 = degree + 1
+    got = torch.cat([fm.gram.reshape(-1, m1 * m1), fm.vty.reshape(-1, m1),
+                     fm.yty.reshape(-1, 1)], 1)
+    want = torch.cat([g64[:, :m1, :m1].reshape(-1, m1 * m1),
+                      g64[:, :m1, m1], g64[:, m1, m1, None]], 1)
+    return block_rel_err(got, want)
+
+
+def _coeff_bound(cond, coeffs, slack):
+    """tests/test_api.py's κ-scaled coefficient bound plus a slack."""
+    kappa = cond if np.isfinite(cond) else 1.0
+    return (200.0 * max(1.0, kappa) * float(np.finfo(np.float32).eps)
+            * max(1.0, float(np.abs(coeffs).max())) + slack)
+
+
+def _mesh_close(label, got, want, slack):
+    """Coefficients within the bound (a search compares its winner's
+    padded layout on the reference's degree) and the same degree."""
+    require(got["best"] == want["best"],
+            f"{label}: degree {got['best']} vs {want['best']}")
+    w = want["coeffs"]
+    g = got["coeffs"][:w.shape[-1]]
+    err = float(np.abs(g - w).max())
+    bound = _coeff_bound(want["cond"], w, slack)
+    require(bool(np.isfinite(g).all()) and err <= bound,
+            f"{label}: coefficients differ by {err:.3e} (bound {bound:.3e})")
+    return err, bound
+
+
+def mesh_rank(rank, world, store, out, device, n) -> int:
+    """One gloo rank of phase 13b (run as ``chip_smoke.py --mesh-rank``):
+    draws the global series on its device, keeps its block, runs
+    MESH_GLOO through ``make_host_mesh(data=world)`` and writes its answers,
+    collective counts and kernel launches to ``out`` (.npz)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api, core, engine
+    from repro_torch.kernels import build
+    from repro_torch.kernels import moments as K
+    from repro_torch.launch import mesh as mesh_lib
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(torch.cuda.current_device())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        # the parent built the kernels: a rank only loads them
+        require(build.library_path().exists(), "kernel library not built")
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=120))
+    try:
+        mesh = mesh_lib.make_host_mesh(data=world, device_type=dev.type)
+        x, y, yo = _mesh_series(torch, core, dev, n)
+        nb = n // world
+        lo = mesh.get_local_rank("data") * nb
+        xb, yb, yob = (a[lo:lo + nb].clone() for a in (x, y, yo))
+        del x, y, yo
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        res = {}
+        launches = {k: 0 for k in K.launch_counts()}
+        for name in MESH_GLOO:
+            K.reset_launch_counts()
+            engine.reset_collective_counter()
+            yy = yob if name == "irls" else yb
+            r = _mesh_fit(torch, api, core, name, mesh, xb, yy)
+            cc = engine.collective_counter()
+            for k, v in K.launch_counts().items():
+                launches[k] += v
+            for k, v in r.items():
+                res[f"{name}.{k}"] = np.asarray(v)
+            # the time of a second, warm run
+            res[f"{name}.wall_ms"] = np.asarray(_mesh_fit(
+                torch, api, core, name, mesh, xb, yy)["wall_ms"])
+            res[f"{name}.collectives"] = np.array(
+                [cc["calls"], cc["bytes"], cc["sum"], cc["min"], cc["max"]])
+        res["decay.moments"] = _mesh_moments(torch, api, "decay", mesh, xb,
+                                             yb)
+        # the launches of the first runs (the second ones repeat them)
+        for k, v in launches.items():
+            res[f"launches.{k}"] = np.asarray(v)
+        # the payload of one LSE fit at half the block
+        engine.reset_collective_counter()
+        _mesh_fit(torch, api, core, "lse", mesh, xb[:nb // 2], yb[:nb // 2])
+        cc = engine.collective_counter()
+        res["lse_half.collectives"] = np.array(
+            [cc["calls"], cc["bytes"], cc["sum"], cc["min"], cc["max"]])
+        np.savez(out, **res)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _mesh_ranks(c, n):
+    """Phase 13b: MESH_RANKS gloo processes on this device, each with its
+    own timeout; all are killed if one fails.  Returns their .npz dicts."""
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")      # one host: loopback
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs = [], []
+        for r in range(MESH_RANKS):
+            log_f = open(Path(tmp) / f"rank{r}.log", "w+")
+            logs.append(log_f)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--mesh-rank", str(r), str(MESH_RANKS), f"{tmp}/store",
+                 f"{tmp}/rank{r}.npz", c["dev"].type, str(n)],
+                env=env, stdout=log_f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MESH_TIMEOUT
+        try:
+            while any(p.poll() is None for p in procs):
+                failed = [p for p in procs if p.poll() not in (None, 0)]
+                if failed or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        tails = []
+        for r, (p, log_f) in enumerate(zip(procs, logs)):
+            log_f.seek(0)
+            tails.append(f"rank {r} rc {p.returncode}:\n"
+                         + log_f.read()[-3000:])
+            log_f.close()
+        require(all(p.returncode == 0 for p in procs),
+                "phase13b ranks failed:\n" + "\n".join(tails))
+        return [dict(np.load(f"{tmp}/rank{r}.npz"))
+                for r in range(MESH_RANKS)]
+
+
+def phase13(c):
+    """The mesh executor: (a) a 1-rank NCCL mesh against eager api.fit,
+    (b) 4 gloo ranks on the one card against (a)."""
+    torch, K, api, core, engine = (c["torch"], c["K"], c["api"], c["core"],
+                                   c["engine"])
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    dev = c["dev"]
+    on_card = dev.type == "cuda"
+    n = MESH_N
+    if on_card:
+        torch.cuda.set_device(torch.cuda.current_device())
+    x, y, yo = _mesh_series(torch, core, dev, n)
+    # the block's moment pass (unweighted for LSE, weighted under IRLS
+    # and decay) takes the plain kernel; the fold stack (MESH_FOLDS,
+    # n / MESH_FOLDS) whichever kernel plan_fit picks
+    plan_block = engine.plan_fit((n,), 3, device=dev)
+    plan_block_w = engine.plan_fit((n,), 3, weighted=True, device=dev)
+    plan_folds = engine.plan_fit((MESH_FOLDS, -(-n // MESH_FOLDS)), 8,
+                                 weighted=True, device=dev,
+                                 workload="select")
+    fold_kernel = ("moments_packed" if plan_folds.path == engine.KERNEL_PACKED
+                   else "moments_plain")
+    if on_card:
+        require(plan_block.path == plan_block_w.path == engine.KERNEL_PLAIN,
+                f"phase13 block plans {plan_block.describe()}, "
+                f"{plan_block_w.describe()}")
+        require(plan_folds.uses_kernel,
+                f"phase13 fold plan {plan_folds.describe()}")
+    part_a, eager, errs = {}, {}, {}
+    total = {k: 0 for k in K.launch_counts()}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if on_card else "gloo",
+            store=dist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1,
+            timeout=timedelta(seconds=120))
+        try:
+            mesh = mesh_lib.make_host_mesh(data=1, device_type=dev.type)
+            group = mesh.get_group("data")
+            warm = torch.zeros(1, device=dev)
+            dist.all_reduce(warm, group=group)   # the communicator's setup
+            for name in ("lse", "irls", "lspia", "search", "decay"):
+                yy = yo if name == "irls" else y
+                K.reset_launch_counts()
+                engine.reset_moment_counter()
+                engine.reset_collective_counter()
+                r = _mesh_fit(torch, api, core, name, mesh, x, yy)
+                launches = K.launch_counts()
+                passes = engine.moment_counter()["calls"]
+                r["collectives"] = engine.collective_counter()
+                want_passes = r["iterations"] + 1 if name == "irls" else 1
+                kernel = fold_kernel if name == "search" else "moments_plain"
+                if on_card:
+                    # every moment pass a kernel launch: never the
+                    # reference path
+                    require(passes == want_passes
+                            and launches[kernel] == passes
+                            and sum(launches.values()) == passes,
+                            f"phase13a {name}: {launches} for {passes} "
+                            f"moment passes ({want_passes} expected)")
+                for k, v in launches.items():
+                    total[k] += v
+                spec = _mesh_spec(api, torch, name)
+                e = api.fit(x, yy, spec, device=dev)
+                eager[name] = {
+                    "coeffs": e.coeffs.cpu().numpy(),
+                    "best": -1 if e.selection is None else int(
+                        e.best_degree),
+                    "cond": float(e.poly.diagnostics.condition.max())}
+                errs[name] = _mesh_close(f"phase13a {name} vs eager", r,
+                                         eager[name], MESH_SLACK[name])
+                # the times of a second, warm run of each
+                r["wall_ms"] = _mesh_fit(torch, api, core, name, mesh, x,
+                                         yy)["wall_ms"]
+                eager[name]["wall_ms"] = c["host_ms"](
+                    lambda: api.fit(x, yy, spec, device=dev))
+                part_a[name] = r
+            # after the counted runs: the decay moments 13b is held to
+            mom_a = _mesh_moments(torch, api, "decay", mesh, x, y)
+            # one all_reduce of the LSE buffer and of the fold stack's
+            m1 = 4 * 4 + 4 + 3
+            m9 = MESH_FOLDS * (9 * 9 + 9 + 3)
+            ar_ms = {}
+            for label, size in (("lse_23", m1), ("fold_stack_465", m9)):
+                buf = torch.ones(size, device=dev)
+                ar_ms[label] = c["cuda_ms"](
+                    lambda: dist.all_reduce(buf, group=group)) if on_card \
+                    else c["host_ms"](lambda: dist.all_reduce(buf,
+                                                              group=group))
+        finally:
+            dist.destroy_process_group()
+    # the fold stack's kernel at this long-row shape, on the search's own
+    # normalized x (a comparison launch, after the counted runs)
+    sh, sc = (torch.tensor(v, dtype=x.dtype, device=dev)
+              for v in part_a["search"]["domain"])
+    fold_abs, fold_rel = _fold_rel_err(torch, K, core.Domain(sh, sc).apply(x),
+                                       y, MESH_FOLDS, 8)
+    require(fold_rel <= TOL_KERNEL,
+            f"phase13a fold moments rel {fold_rel:.3e}")
+    require(part_a["lse"]["count"] == float(n),
+            f"phase13a count {part_a['lse']['count']}")
+    require(part_a["search"]["best"] == 3,
+            f"phase13a search picked degree {part_a['search']['best']}")
+    cc = part_a["lse"]["collectives"]
+    require((cc["sum"], cc["min"], cc["max"], cc["bytes"])
+            == (1, 1, 1, (23 + 2) * 4), f"phase13a LSE collectives {cc}")
+    irls_sweeps = part_a["irls"]["iterations"] + 1
+    out = {"n": n, "allreduce_ms": ar_ms,
+           "irls_ms_per_sweep": part_a["irls"]["wall_ms"] / irls_sweeps,
+           "mesh_ms": {k: v["wall_ms"] for k, v in part_a.items()},
+           "eager_ms": {k: v["wall_ms"] for k, v in eager.items()},
+           "bytes_per_fit": {k: v["collectives"]["bytes"]
+                             for k, v in part_a.items()},
+           "iterations": {k: part_a[k]["iterations"]
+                          for k in ("irls", "lspia")},
+           "fold_kernel": fold_kernel,
+           "fold_max_abs_err": fold_abs, "fold_max_rel_err": fold_rel}
+    log(f"phase13a 1-rank {'NCCL' if on_card else 'gloo'} mesh, "
+        f"n=2^{n.bit_length() - 1}: "
+        f"block plan {plan_block.describe()}; fold plan "
+        f"{plan_folds.describe()}; launches {total}; {fold_kernel} fold "
+        f"stack ({MESH_FOLDS}, {-(-n // MESH_FOLDS)}) vs float64 plain: "
+        f"max abs {fold_abs:.3e}, rel {fold_rel:.3e} (bound {TOL_KERNEL})")
+    for name, r in part_a.items():
+        log(f"phase13a {name}: mesh {r['wall_ms']:.3f} ms, eager api.fit "
+            f"{eager[name]['wall_ms']:.3f} ms (host clock, one warm run); "
+            f"coeffs vs eager {errs[name][0]:.3e} (bound "
+            f"{errs[name][1]:.3e}); degree {r['best']}; iterations "
+            f"{r['iterations']}; all-reduce {r['collectives']}")
+    log(f"phase13a {'NCCL' if on_card else 'gloo'} all_reduce: "
+        f"{json.dumps(ar_ms)} ms (CUDA events, median of 20); IRLS {out['irls_ms_per_sweep']:.3f} ms per sweep "
+        f"({irls_sweeps} moment passes)")
+    del x, y, yo
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 13b: 4 gloo ranks
+    t0 = time.perf_counter()
+    ranks = _mesh_ranks(c, n)
+    wall_b = time.perf_counter() - t0
+    keys = sorted(ranks[0])
+    for r, res in enumerate(ranks[1:], 1):
+        for k in keys:
+            if k.endswith("wall_ms"):
+                continue
+            require(np.array_equal(res[k], ranks[0][k]),
+                    f"phase13b rank {r} differs from rank 0 on {k}")
+    b = {name: {f: ranks[0][f"{name}.{f}"].item() if ranks[0][
+        f"{name}.{f}"].ndim == 0 else ranks[0][f"{name}.{f}"]
+        for f in ("coeffs", "best", "iterations", "count", "cond")}
+        for name in MESH_GLOO}
+    errs_b = {}
+    for name in MESH_GLOO:
+        errs_b[name] = _mesh_close(f"phase13b {name} vs 13a", b[name],
+                                   part_a[name], MESH_SLACK[name])
+    require(b["lse"]["count"] == float(n),
+            f"phase13b count {b['lse']['count']}")
+    # the decay's global ages: Σγ^age and Σγ^age·y² against 13a (a wrong
+    # age moves them by far more than the bound; the coefficients of a
+    # stationary series hardly move)
+    mom_b = ranks[0]["decay.moments"]
+    mom_rel = np.abs(mom_b[1:] - mom_a[1:]) / np.abs(mom_a[1:])
+    require(mom_b[0] == mom_a[0] == float(n)
+            and bool((mom_rel <= TOL_MAIN).all()),
+            f"phase13b decay moments {mom_b.tolist()} vs 13a "
+            f"{mom_a.tolist()}")
+    out["decay_moments_rel_13b_vs_13a"] = mom_rel.tolist()
+    require(b["search"]["best"] == 3,
+            f"phase13b search picked degree {b['search']['best']}")
+    full = ranks[0]["lse.collectives"]
+    half = ranks[0]["lse_half.collectives"]
+    require(np.array_equal(full, half),
+            f"phase13b LSE payload at 2^26 {full} vs 2^25 {half}")
+    launches_b = {k: int(sum(res[f"launches.{k}"] for res in ranks))
+                  for k in total}
+    if on_card:
+        require(launches_b["moments_plain"] > 0
+                and launches_b[fold_kernel] > 0,
+                f"phase13b launches {launches_b}")
+    for k in total:
+        total[k] += launches_b[k]
+    out["gloo_4_ranks"] = {
+        "wall_s": wall_b,
+        "mesh_ms_max_over_ranks": {
+            name: max(float(res[f"{name}.wall_ms"]) for res in ranks)
+            for name in MESH_GLOO},
+        "bytes_per_fit": {name: int(ranks[0][f"{name}.collectives"][1])
+                          for name in MESH_GLOO},
+        "launches": launches_b}
+    for name in MESH_GLOO:
+        log(f"phase13b {name}: 4 ranks bit-equal; vs 13a "
+            f"{errs_b[name][0]:.3e} (bound {errs_b[name][1]:.3e}); degree "
+            f"{b[name]['best']}; iterations {b[name]['iterations']}; "
+            f"all-reduce [calls, bytes, sum, min, max] "
+            f"{ranks[0][name + '.collectives'].tolist()}; slowest rank "
+            f"{out['gloo_4_ranks']['mesh_ms_max_over_ranks'][name]:.3f} ms "
+            "(a warm run, host clock; gloo stages each reduction through "
+            "the host)")
+    log(f"phase13b count {b['lse']['count']:.0f}; LSE payload "
+        f"{full.tolist()} at 2^26 per rank = {half.tolist()} at 2^25; "
+        f"decay weight_sum, yty vs 13a rel {mom_rel.tolist()} (bound "
+        f"{TOL_MAIN}); "
+        f"launches {launches_b}; {wall_b:.1f} s with process start")
+    return total, out
+
+
 def _host_ms(torch, fn):
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1566,4 +2020,7 @@ def _host_ms(torch, fn):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        r_, w_, store_, out_, dev_, n_ = sys.argv[2:8]
+        sys.exit(mesh_rank(int(r_), int(w_), store_, out_, dev_, int(n_)))
     sys.exit(main())

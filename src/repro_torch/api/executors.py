@@ -1,9 +1,11 @@
 """The executors consuming one ``FitSpec`` (port of
-``repro.api.executors`` without its distributed executor):
+``repro.api.executors``):
 
 * ``fit(x, y, spec)``       eager, any spec;
 * ``stream_state(spec)``    (= ``spec.streaming()``) an O(1)-state
                             ``StreamState`` + ``stream_result``;
+* ``make_distributed(spec, mesh)``  (= ``spec.distributed(mesh)``) the
+                            mesh executor over ``torch.distributed``;
 * the fit server's ``submit(x, y, spec=...)`` (``serve.fit_engine``).
 
 Each lowers through ``engine.plan_fit`` (via ``FitSpec.plan``), so path
@@ -18,6 +20,7 @@ from repro_torch import engine as engine_lib
 from repro_torch import select as select_lib
 from repro_torch.api.spec import FitResult, FitSpec, RAW_DATA_SOLVERS
 from repro_torch.core import basis as basis_lib
+from repro_torch.core import distributed as distributed_lib
 from repro_torch.core import fit as fit_lib
 from repro_torch.core import lspia as lspia_lib
 from repro_torch.core import moments as moments_lib
@@ -249,3 +252,44 @@ def stream_result(state: streaming_lib.StreamState) -> FitResult:
                      report=fit_lib.report_from_moments(state.moments,
                                                         coeffs),
                      iterations=it, converged=conv)
+
+
+# ---------------------------------------------------------- distributed
+def make_distributed(spec: FitSpec, mesh, *,
+                     data_axes: tuple[str, ...] = ("data",)):
+    """Executor 3: ``fn(x, y, weights=None) -> FitResult`` on a
+    ``DeviceMesh``.
+
+    Every rank calls ``fn`` with its own block of the series, laid out
+    row-major over ``data_axes`` (``core.distributed``'s input contract);
+    the result is replicated.  The method dispatch, the O(m²)
+    all-reduce, IRLS with an all-reduce per sweep, moment-space LSPIA and
+    the fold-stack all-reduce of a DegreeSearch live in
+    ``core.distributed.make_spec_executor``."""
+    runner, kind = distributed_lib.make_spec_executor(
+        spec, mesh, data_axes=data_axes)
+    if spec.is_search:
+        ds = spec.degree
+        criterion = ds.criterion or ("cv" if ds.folds >= 2 else "aicc")
+
+    def run(x, y, weights=None) -> FitResult:
+        out = runner(x, y, weights)
+        if kind == "search":
+            poly, sweep, best = out
+            best_np = best.cpu().numpy()
+            sel = select_lib.Selection(
+                sweep=sweep,
+                best_degree=(int(best_np) if best_np.ndim == 0 else best_np),
+                criterion=criterion, poly=poly)
+            return FitResult(poly=poly, selection=sel)
+        if kind == "iter":
+            poly, m, it, conv = out
+            return FitResult(poly=poly,
+                             report=fit_lib.report_from_moments(
+                                 m, poly.coeffs),
+                             iterations=it, converged=conv)
+        poly, m = out
+        return FitResult(poly=poly,
+                         report=fit_lib.report_from_moments(m, poly.coeffs))
+
+    return run

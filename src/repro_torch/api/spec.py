@@ -1,16 +1,17 @@
 """FitSpec — one declarative, validated description of a fit (port of
 ``repro.api.spec``).
 
-One frozen, hashable spec consumed unchanged by three executors:
+One frozen, hashable spec consumed unchanged by four executors:
 
 * ``api.fit(x, y, spec)``          eager;
 * ``spec.streaming()``             an O(1)-state ``StreamState`` wired to
                                    the spec (chunk updates + result);
+* ``spec.distributed(mesh)``       a mesh executor over
+                                   ``torch.distributed`` ranks: each rank
+                                   passes its block, all get the result;
 * ``serve.FitServeEngine.submit(x, y, spec=...)``  per-request policy on
                                    the fit server (and on the fleet, with
                                    a ``ServicePolicy`` beside it).
-
-The distributed executor (``spec.distributed(mesh)``) is a later slice.
 """
 from __future__ import annotations
 
@@ -230,8 +231,9 @@ class FitSpec:
 
     def plan(self, shape: tuple[int, ...], dtype: Any, *,
              weighted: bool = False, workload: str = "moments",
-             device=None):
-        """Lower this spec through ``engine.plan_fit``."""
+             device=None, mesh=None, data_axes: tuple[str, ...] = ()):
+        """Lower this spec through ``engine.plan_fit`` (``mesh``/
+        ``data_axes``: ``shape`` is one rank's shard of a mesh fit)."""
         pol = self.numerics
         solver = "auto" if pol.solver in RAW_DATA_SOLVERS else pol.solver
         return plan_lib.plan_fit(
@@ -240,7 +242,7 @@ class FitSpec:
             accum_dtype=pol.accum_dtype, normalize=pol.normalize,
             compensated=pol.compensated, solver=solver,
             fallback=pol.fallback, cond_cap=pol.cond_cap, device=device,
-            workload=workload)
+            mesh=mesh, data_axes=data_axes, workload=workload)
 
     def streaming(self, batch: tuple[int, ...] = (), *, dtype=None,
                   device=None):
@@ -251,6 +253,13 @@ class FitSpec:
         from repro_torch.api import executors
         return executors.stream_state(self, batch, dtype=dtype,
                                       device=device)
+
+    def distributed(self, mesh, *, data_axes: tuple[str, ...] = ("data",)):
+        """A mesh executor for this spec: ``fn(x, y, weights=None) ->
+        FitResult``, called on every rank with that rank's block of the
+        series (``core.distributed``), the result replicated."""
+        from repro_torch.api import executors
+        return executors.make_distributed(self, mesh, data_axes=data_axes)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,6 +19,9 @@ from repro_torch.core.fit import (Polynomial, FitReport, StreamedFitReport,
                                   report_from_moments)
 from repro_torch.core.robust import robust_polyfit, RobustFit, HUBER, TUKEY
 from repro_torch.core.lspia import lspia_fit, LSPIAFit
+from repro_torch.core.distributed import (make_distributed_fit,
+                                          make_distributed_select,
+                                          local_moments, psum_moments)
 from repro_torch.core.streaming import (StreamState, update, current_fit,
                                         current_sse)
 
@@ -47,6 +50,8 @@ __all__ = [
     "fit_report_streamed", "sse_from_moments", "report_from_moments",
     "robust_polyfit", "RobustFit", "HUBER", "TUKEY",
     "lspia_fit", "LSPIAFit",
+    "make_distributed_fit", "make_distributed_select",
+    "local_moments", "psum_moments",
     "StreamState", "update", "current_fit", "current_sse",
     "select_degree", "DegreeSearch", "Selection", "SweepResult",
     "sweep_from_moments",

@@ -1,13 +1,43 @@
-"""Asynchronous LSPIA: barrier-free shard contributions (arXiv:2211.06556),
-port of the asynchronous half of ``repro.core.distributed``.
+"""Distributed matricized LSE fitting over ``torch.distributed`` (port of
+``repro.core.distributed``).
 
-The reference's synchronous half, a ``shard_map`` program whose every
-Richardson sweep waits for the slowest shard's ``psum``, is the next slice
-of ROADMAP.md Queue 1 item 12 (a ``torch.distributed`` mesh executor).
+**The mesh executor (synchronous).**  The paper parallelizes moment
+accumulation across CUDA threads on one GPU; here the same additive
+structure is mapped onto a ``DeviceMesh`` of ranks: every rank accumulates
+the Gram/moment partials of its own block on its device, one
+``all_reduce(SUM)`` per data axis of a single flat buffer holding every
+``Moments`` field ((m+1)² + (m+1) + 3 values per series, whatever n is)
+combines them, and the tiny (m+1) solve runs replicated on every rank.
+
+``make_spec_executor`` is the one factory: it consumes an ``api.FitSpec``
+and builds the mesh program for any method × degree question: plain LSE,
+IRLS (one moment all-reduce and one scale all-reduce per sweep; the loop's
+stop test reads the replicated coefficients, so every rank takes the same
+number of trips), moment-space LSPIA (Richardson on the all-reduced normal
+equations) and single-pass degree search (one all-reduce of the (k, m+1,
+m+1) fold stack), with weights, decay and the numerics policy riding in
+from the spec.  ``make_distributed_fit`` / ``make_distributed_select`` are
+the legacy-signature shims that build the spec.
+
+The input contract.  torch has no globally sharded array, so every rank
+calls the runner with ITS OWN contiguous block of the global 1-D series
+(x, y and the optional weights alike; all blocks of one length).  The
+blocks are laid out row-major over ``data_axes``: the rank at mesh
+coordinates (i₀, i₁, …) on those axes holds block ((i₀·s₁ + i₁)·s₂ + …),
+sᵢ being the axes' sizes.  Ranks that differ only on a non-data axis pass
+the same block.  Every rank gets the same, replicated result.  The default
+process group must be initialized before the mesh is built
+(``launch.mesh``), the data must live on the mesh's device type, and a
+NCCL group takes CUDA tensors only; each mismatch raises, and collective
+errors are never caught.
+
+**Asynchronous LSPIA: barrier-free shard contributions**
+(arXiv:2211.06556).  The mesh executor is a barrier program: every
+Richardson sweep waits for the slowest shard's all-reduce.
 The asynchronous-LSPIA result says the iteration does not have to wait:
 gradient contributions computed against *stale* coefficient versions
 still drive it to the same least-squares fixed point as long as the
-staleness is bounded.  This module realizes that on the fleet's
+staleness is bounded.  ``async_lspia_fit`` realizes that on the fleet's
 virtual-tick mailbox substrate: one coordinator, N ``AsyncLSPIAShard``
 workers (each wrappable by ``runtime.chaos``'s ``ChaosWorker`` — same
 protocol as ``serve.fleet``'s workers), per-shard sequence numbers for
@@ -16,9 +46,9 @@ is rejected and recomputed.  A chaos-stalled shard therefore delays
 CONVERGENCE (its contribution is missing until it catches up) but never
 blocks the coordinator's updates.
 
-The shards' data and their gradients live on one device (``None`` means
-CUDA); each delta comes back to the host, where the coordinator keeps the
-iterate in float64 as the reference does.
+The async shards' data and their gradients live on one device (``None``
+means CUDA); each delta comes back to the host, where the coordinator
+keeps the iterate in float64 as the reference does.
 """
 from __future__ import annotations
 
@@ -26,17 +56,442 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import engine as engine_lib
 from repro_torch.core import basis as basis_lib
 from repro_torch.core import fit as fit_lib
 from repro_torch.core import lspia as lspia_lib
+from repro_torch.core import moments as moments_lib
+from repro_torch.core import solve as solve_lib
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.runtime import chaos as chaos_lib
 from repro_torch.runtime import straggler as straggler_lib
 from repro_torch.runtime.fault_tolerance import FailureDetector
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+               "max": dist.ReduceOp.MAX}
 
+
+def _axis_size(mesh, ax: str) -> int:
+    if ax not in mesh.mesh_dim_names:
+        raise ValueError(f"data axis {ax!r} is not an axis of the mesh "
+                         f"{mesh.mesh_dim_names}")
+    return mesh.size(mesh.mesh_dim_names.index(ax))
+
+
+def _check_mesh_input(x: torch.Tensor, mesh, data_axes) -> None:
+    """The three mismatches that raise before any collective runs."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "the mesh executor needs an initialized default process group: "
+            "call torch.distributed.init_process_group(...) on every rank")
+    if x.device.type != mesh.device_type:
+        raise ValueError(f"data on {x.device} but the mesh is over "
+                         f"{mesh.device_type!r} devices")
+    for ax in data_axes:
+        if (dist.get_backend(mesh.get_group(ax)) == "nccl"
+                and x.device.type != "cuda"):
+            raise ValueError(f"the NCCL group of mesh axis {ax!r} takes "
+                             f"CUDA tensors only, got {x.device}")
+
+
+def _all_reduce(t: torch.Tensor, op: str, mesh,
+                data_axes: tuple[str, ...]) -> torch.Tensor:
+    """In-place ``all_reduce`` of ``t`` under ``op`` ("sum", "min", "max")
+    over each data axis in turn (one collective per axis, each counted by
+    ``engine.collective_counter``).  Returns ``t``."""
+    for ax in data_axes:
+        engine_lib.record_collective(op, t.numel() * t.element_size())
+        dist.all_reduce(t, op=_REDUCE_OPS[op], group=mesh.get_group(ax))
+    return t
+
+
+def local_moments(x: torch.Tensor, y: torch.Tensor, degree: int, *,
+                  basis: str = basis_lib.MONOMIAL,
+                  weights: torch.Tensor | None = None,
+                  accum_dtype=None,
+                  engine: str = "auto") -> moments_lib.Moments:
+    """One rank's moment accumulation over its own block.
+
+    Routes through ``engine.plan_fit`` on the block's device (a CUDA
+    block takes the kernels), which validates the basis on kernel paths:
+    forcing the kernel with a non-monomial basis raises here."""
+    plan = engine_lib.plan_fit(
+        tuple(x.shape), degree, basis=basis, dtype=x.dtype,
+        weighted=weights is not None, engine=engine,
+        accum_dtype=accum_dtype, device=x.device)
+    return engine_lib.compute_moments(plan, x, y, weights)
+
+
+def psum_moments(m: moments_lib.Moments, mesh,
+                 data_axes: tuple[str, ...] = ("data",)
+                 ) -> moments_lib.Moments:
+    """The one collective of the whole algorithm: every field of ``m`` in
+    one flat buffer, one SUM all-reduce per data axis, O(m²) bytes."""
+    fields = [getattr(m, f.name) for f in dataclasses.fields(m)]
+    flat = torch.cat([f.reshape(-1) for f in fields])
+    _all_reduce(flat, "sum", mesh, data_axes)
+    out, at = [], 0
+    for f in fields:
+        out.append(flat[at:at + f.numel()].reshape(f.shape).to(f.dtype))
+        at += f.numel()
+    return moments_lib.Moments(*out)
+
+
+def _global_domain(x: torch.Tensor, w: torch.Tensor | None, mesh,
+                   data_axes) -> basis_lib.Domain:
+    """Global [-1, 1] domain over all blocks (the block's min/max, then a
+    MIN and a MAX all-reduce: the second tiny collective of a normalized
+    distributed fit).  Zero-weight entries are excluded (``w=None``: every
+    point counts); a degenerate zero range keeps the identity scale."""
+    if w is None:
+        lo, hi = (a.reshape(1) for a in torch.aminmax(x))
+    else:
+        big = torch.finfo(x.dtype).max
+        live = w > 0
+        lo = torch.amin(torch.where(live, x, big)).reshape(1)
+        hi = torch.amax(torch.where(live, x, -big)).reshape(1)
+    _all_reduce(lo, "min", mesh, data_axes)
+    _all_reduce(hi, "max", mesh, data_axes)
+    shift = (hi + lo) / 2.0
+    half = (hi - lo) / 2.0
+    one = torch.ones_like(half)
+    scale = torch.where(half > 0, one / torch.where(half > 0, half, one),
+                        one)
+    return basis_lib.Domain(shift[0], scale[0])
+
+
+# --------------------------------------------------------------------------
+# the spec executor: every method × degree question, one mesh factory
+# --------------------------------------------------------------------------
+def make_spec_executor(spec, mesh, *,
+                       data_axes: tuple[str, ...] = ("data",)):
+    """Build the mesh program for a ``FitSpec``.
+
+    Returns ``(runner, kind)``: every rank calls ``runner(x, y, weights=
+    None)`` with its own block (the module's input contract) and gets
+    replicated outputs whose shape ``kind`` names:
+
+    * ``"fixed"``:  ``(poly, moments)``                (method="lse")
+    * ``"iter"``:   ``(poly, moments, iters, conv)``   (irls / lspia)
+    * ``"search"``: ``(poly, sweep, best_degree)``     (DegreeSearch)
+
+    ``api.make_distributed`` wraps the tuple into a ``FitResult``; the
+    legacy ``make_distributed_fit``/``_select`` shims return it raw.
+    """
+    from repro_torch import select as select_lib
+    from repro_torch.api import spec as spec_lib
+    from repro_torch.core import robust as robust_lib
+    from repro_torch.select import crossval
+
+    if spec.numerics.solver in spec_lib.RAW_DATA_SOLVERS:
+        raise ValueError(
+            f"solver={spec.numerics.solver!r} needs the raw Vandermonde "
+            "rows and cannot run on the distributed moment surface; use "
+            "the eager api.fit executor")
+    devices_total = 1
+    for ax in data_axes:
+        devices_total *= _axis_size(mesh, ax)
+    search = spec.is_search
+    md = spec.max_degree
+    folds = spec.folds if search else 0
+    accum = spec.numerics.accum_dtype
+    # eager validation + numerics resolution (a block's length is unknown
+    # here, so plan with a placeholder: the path is re-planned per block
+    # on its device inside local_moments; the numerics policy is resolved
+    # here, once)
+    plan = spec.plan((max(folds, 1), 1) if search else (1,),
+                     accum or torch.float32, weighted=True,
+                     workload="select" if search else "moments",
+                     mesh=mesh, data_axes=data_axes)
+    pol = plan.numerics
+    normalized = pol.normalize or spec.domain is not None
+    if search:
+        ds = spec.degree
+        criterion = ds.criterion
+        if criterion is None:
+            criterion = "cv" if folds >= 2 else "aicc"
+        if criterion == "cv" and folds < 2:
+            raise ValueError("criterion='cv' needs folds >= 2")
+        ladder_solver = (spec.numerics.solver
+                         if spec.numerics.solver != "auto" else ds.solver)
+        ladder_fb, ladder_cap = ds.fallback, ds.cond_cap
+
+    def shard_domain(x, w):
+        pinned = spec.domain_or(None, dtype=x.dtype, device=x.device)
+        if pinned is not None:
+            return pinned
+        if pol.normalize:
+            return _global_domain(x, w, mesh, data_axes)
+        return basis_lib.Domain.identity(x.dtype, x.device)
+
+    def apply_decay(x, w):
+        """spec.decay as the GLOBAL age ladder: each rank reconstructs its
+        points' global positions from its mesh coordinates (blocks are
+        laid out row-major over the data axes), so the γ-weighting is the
+        eager surface's ``decay_ladder`` over the whole series; the ages
+        are computed in x's dtype, as the reference does.  ``w=None``
+        returns the ladder alone."""
+        if spec.decay == 1.0:
+            return w
+        pos = 0
+        for ax in data_axes:
+            pos = pos * _axis_size(mesh, ax) + mesh.get_local_rank(ax)
+        n_local = x.shape[-1]
+        n_global = n_local * devices_total
+        idx = pos * n_local + torch.arange(n_local, device=x.device)
+        age = (n_global - 1) - idx.to(x.dtype)
+        gamma = torch.tensor(spec.decay, dtype=x.dtype, device=x.device)
+        ladder = gamma ** age
+        return ladder if w is None else w * ladder
+
+    def gmoments(xt, y, w):
+        """One global accumulation: the block's moments + the all-reduce."""
+        return psum_moments(
+            local_moments(xt, y, md, basis=spec.basis, weights=w,
+                          accum_dtype=accum, engine=spec.engine),
+            mesh, data_axes)
+
+    def solve(m):
+        ms = m.regularized(spec.ridge) if spec.ridge else m
+        return solve_lib.solve_with_fallback(
+            ms.gram, ms.vty, method=pol.solver, fallback=pol.fallback,
+            cond_cap=pol.cond_cap)
+
+    def mk_poly(coeffs, dom, diag):
+        return fit_lib.Polynomial(coeffs=coeffs, domain_shift=dom.shift,
+                                  domain_scale=dom.scale, basis=spec.basis,
+                                  diagnostics=diag)
+
+    def irls_weights_loop(xt, y, w):
+        """The IRLS loop, mesh-wide: every sweep is one O(m²) moment
+        all-reduce and one scale all-reduce; the stop test reads the
+        replicated coefficients, so every rank takes the same number of
+        trips.  The robust scale is the contributing-block mean of the
+        block MADs (an exact global median would need its own iterative
+        collective; on shuffled blocks the block MADs agree to
+        O(1/√n_block)).  ``w=None`` takes the unweighted moment pass for
+        the first solve; the sweeps are weighted by ψ anyway."""
+        opts = spec.irls
+        cval = robust_lib.resolve_tuning(opts.loss, opts.c)
+        tol = max(float(opts.tol), 500.0 * float(torch.finfo(xt.dtype).eps))
+
+        def sigma_of(coeffs):
+            r = y - basis_lib.evaluate(coeffs, xt, basis=spec.basis)
+            sig = robust_lib.chunk_scale(r, w, y)[..., 0]
+            has = torch.any(w > 0).to(xt.dtype)
+            buf = torch.cat([(sig * has).reshape(-1), has.reshape(1)])
+            _all_reduce(buf, "sum", mesh, data_axes)
+            num = buf[:-1].reshape(sig.shape)
+            den = torch.clamp(buf[-1], min=1.0)
+            return r, (num / den)[..., None]
+
+        def reweight(coeffs):
+            r, sigma = sigma_of(coeffs)
+            return robust_lib.robust_weights(r / sigma, opts.loss, cval) * w
+
+        m = gmoments(xt, y, w)
+        coeffs, cond, used = solve(m)
+        if w is None:
+            w = torch.ones_like(xt)
+        delta = torch.full(tuple(xt.shape[:-1]), float("inf"),
+                           dtype=xt.dtype, device=xt.device)
+        it = 0
+        while it < opts.max_iter and bool(torch.any(delta > tol)):
+            m = gmoments(xt, y, reweight(coeffs))
+            new, cond, used = solve(m)
+            scale = torch.clamp(torch.amax(torch.abs(new), dim=-1), min=1.0)
+            delta = torch.amax(torch.abs(new - coeffs), dim=-1) / scale
+            coeffs = new
+            it += 1
+        return coeffs, cond, used, m, reweight(coeffs), delta <= tol, it
+
+    # ------------------------------------------------------------ programs
+    def prepare(x, w):
+        w = apply_decay(x, w)
+        dom = shard_domain(x, w)
+        return w, dom, dom.apply(x)
+
+    if search:
+        def _run(x, y, w):
+            w, dom, xt = prepare(x, w)
+            if spec.method == "irls":
+                # robust weights established mesh-wide at max_degree, then
+                # the usual single-pass weighted ladder on top of them
+                w_eff = irls_weights_loop(xt, y, w)[4]
+            else:
+                w_eff = w
+            if folds >= 2:
+                fm = crossval.fold_moments(xt, y, folds, md, weights=w_eff,
+                                           basis=spec.basis,
+                                           engine=spec.engine,
+                                           accum_dtype=accum)
+                fm = psum_moments(fm, mesh, data_axes)  # folds global
+                total = crossval.sum_folds(fm)
+            else:
+                fm = None
+                total = gmoments(xt, y, w_eff)
+            mr = total.regularized(spec.ridge) if spec.ridge else total
+            sweep = select_lib.sweep_from_moments(
+                mr, fold_moments=fm,
+                score_moments=total if spec.ridge else None,
+                solver=ladder_solver, fallback=ladder_fb,
+                cond_cap=ladder_cap, basis=spec.basis, normalized=normalized)
+            best = sweep.best(criterion)
+            # the winning fit in the padded ladder layout, WITH its Domain,
+            # so raw-x evaluation is right
+            diag = fit_lib.FitDiagnostics(
+                condition=sweep.condition[..., best],
+                fallback_used=sweep.fallback_used[..., best],
+                solver=ladder_solver, fallback=ladder_fb or "none")
+            return mk_poly(sweep.coeffs[..., best, :], dom, diag), sweep, best
+
+    elif spec.method == "irls":
+        def _run(x, y, w):
+            w, dom, xt = prepare(x, w)
+            coeffs, cond, used, m, _, conv, it = irls_weights_loop(xt, y, w)
+            diag = fit_lib.FitDiagnostics(
+                condition=cond, fallback_used=used, solver=pol.solver,
+                fallback=pol.fallback or "none")
+            return mk_poly(coeffs, dom, diag), m, it, conv
+
+    elif spec.method == "lspia":
+        def _run(x, y, w):
+            # the mesh already pays the O(m²) all-reduce, so the fixed
+            # point is reached by Richardson on the all-reduced normal
+            # equations (moment-space LSPIA): matrix-free sweeps would
+            # cost one collective per iteration instead of one in all
+            w, dom, xt = prepare(x, w)
+            m = gmoments(xt, y, w)
+            ms = m.regularized(spec.ridge) if spec.ridge else m
+            opts = spec.lspia
+            coeffs, cond, conv, it = lspia_lib.lspia_solve_moments(
+                ms.gram, ms.vty, tol=opts.tol, max_iter=opts.max_iter,
+                power_iters=opts.power_iters, step=opts.step,
+                momentum=opts.momentum)
+            diag = fit_lib.FitDiagnostics(condition=cond,
+                                          fallback_used=~conv,
+                                          solver="lspia", fallback="none")
+            return mk_poly(coeffs, dom, diag), m, it, conv
+
+    else:
+        # plain matricized LSE: the paper's algorithm, mesh-wide
+        def _run(x, y, w):
+            w, dom, xt = prepare(x, w)
+            m = gmoments(xt, y, w)
+            ms = m.regularized(spec.ridge) if spec.ridge else m
+            poly = fit_lib.fit_from_moments(ms, solver=pol.solver,
+                                            fallback=pol.fallback,
+                                            cond_cap=pol.cond_cap,
+                                            domain=dom, basis=spec.basis,
+                                            normalized=normalized)
+            return poly, m
+
+    def runner(x: torch.Tensor, y: torch.Tensor,
+               weights: torch.Tensor | None = None):
+        _check_mesh_input(x, mesh, data_axes)
+        return _run(x, y, weights)
+
+    kind = ("search" if search
+            else "iter" if spec.method in ("irls", "lspia") else "fixed")
+    return runner, kind
+
+
+# --------------------------------------------------------------------------
+# legacy-signature shims: build a FitSpec, run the spec executor
+# --------------------------------------------------------------------------
+def make_distributed_fit(mesh, degree: int, *,
+                         data_axes: tuple[str, ...] = ("data",),
+                         method: str | None = None,
+                         solver: str = "auto",
+                         fallback: str | None = "svd",
+                         basis: str = basis_lib.MONOMIAL,
+                         normalize: bool = False,
+                         accum_dtype=torch.float32,
+                         engine: str = "auto"):
+    """A distributed fit: ``(x, y, weights) -> (Polynomial, Moments)``.
+    Thin shim over ``make_spec_executor``: the kwargs assemble a
+    ``FitSpec(method="lse")``.
+
+    Each rank passes its block of x, y and weights (the module's input
+    contract); weights mask padding (ragged global series).  The
+    Polynomial comes out replicated.  ``normalize=True`` computes the
+    global min/max first (the second tiny collective) and fits in the
+    normalized domain.  ``method=`` is the legacy spelling of
+    ``solver=``."""
+    from repro_torch.api import spec as spec_lib
+    from repro_torch.engine import plan as plan_lib
+    if method is not None:
+        solver = method
+    spec = spec_lib.FitSpec(
+        degree=int(degree), basis=basis, method="lse",
+        numerics=plan_lib.NumericsPolicy(accum_dtype=accum_dtype,
+                                         normalize=normalize, solver=solver,
+                                         fallback=fallback),
+        engine=engine)
+    runner, _ = make_spec_executor(spec, mesh, data_axes=data_axes)
+    return runner
+
+
+def make_distributed_select(mesh, max_degree: int, *,
+                            folds: int = 5,
+                            data_axes: tuple[str, ...] = ("data",),
+                            criterion: str | None = None,
+                            solver: str = "auto",
+                            fallback: str | None = "svd",
+                            cond_cap: float | None = None,
+                            basis: str = basis_lib.MONOMIAL,
+                            normalize: bool = False,
+                            accum_dtype=torch.float32,
+                            engine: str = "auto"):
+    """Mesh-parallel single-pass degree selection: ``(x, y, weights) ->
+    (poly, sweep, best_degree)``, all replicated.  Thin shim over
+    ``make_spec_executor``: the kwargs assemble a
+    ``FitSpec(degree=DegreeSearch(...))``.
+
+    Each rank accumulates its block's k-fold moment partials (round-robin
+    within the block: fold membership is an arbitrary partition, so a
+    local assignment is a valid global one) and ONE all-reduce of the
+    (k, m+1, m+1) fold stack makes the folds global: selection's
+    collective cost is O(k·m²) values, independent of n.  The ladder solve
+    and scoring then run replicated on every rank.  ``folds < 2`` drops CV
+    (one plain all-reduced state; AICc/BIC/GCV still select).
+
+    ``poly`` is the winning fit in the zero-padded (max_degree+1) layout
+    and carries its Domain, so evaluating it on raw x is right even when
+    normalization mapped the fit to [-1, 1]; ``sweep.coeffs`` live in that
+    same fitted domain and basis."""
+    from repro_torch import select as select_lib
+    from repro_torch.api import spec as spec_lib
+    from repro_torch.engine import plan as plan_lib
+    spec = spec_lib.FitSpec(
+        degree=select_lib.DegreeSearch(max_degree=int(max_degree),
+                                       folds=int(folds),
+                                       criterion=criterion, solver=solver,
+                                       fallback=fallback,
+                                       cond_cap=cond_cap),
+        basis=basis, method="lse",
+        numerics=plan_lib.NumericsPolicy(accum_dtype=accum_dtype,
+                                         normalize=normalize,
+                                         solver="auto", fallback=fallback,
+                                         cond_cap=cond_cap),
+        engine=engine)
+    runner, _ = make_spec_executor(spec, mesh, data_axes=data_axes)
+    return runner
+
+
+def distributed_fit_input_specs(n_global: int, dtype=torch.float32):
+    """Shape-and-dtype stand-ins (``meta`` tensors) for a dry run of the
+    fit itself."""
+    s = torch.empty((n_global,), dtype=dtype, device="meta")
+    return dict(x=s, y=s, weights=s)
+
+
+# --------------------------------------------------------------------------
+# asynchronous LSPIA: barrier-free shard contributions (arXiv:2211.06556)
+# --------------------------------------------------------------------------
 @dataclasses.dataclass
 class ShardSweep:
     """Coordinator → shard: "compute your normal-equation gradient against

@@ -7,6 +7,9 @@ from repro_torch.engine.plan import (FitPlan, NumericsPolicy, plan_fit,
                                      compute_moments, compute_report_sums,
                                      resolve_numerics,
                                      reset_moment_counter, moment_counter,
+                                     record_collective,
+                                     reset_collective_counter,
+                                     collective_counter,
                                      REFERENCE, KERNEL_PLAIN, KERNEL_PACKED,
                                      PATHS, ENGINES, SOLVERS,
                                      PACKED_MIN_BATCH, KERNEL_MIN_POINTS,
@@ -17,6 +20,7 @@ __all__ = [
     "FitPlan", "NumericsPolicy", "plan_fit",
     "compute_moments", "compute_report_sums",
     "resolve_numerics", "reset_moment_counter", "moment_counter",
+    "record_collective", "reset_collective_counter", "collective_counter",
     "REFERENCE", "KERNEL_PLAIN", "KERNEL_PACKED", "PATHS", "ENGINES",
     "SOLVERS", "PACKED_MIN_BATCH", "KERNEL_MIN_POINTS",
     "AUTO_NORMALIZE_DEGREE_F32", "AUTO_NORMALIZE_DEGREE_F64",

@@ -79,6 +79,8 @@ class FitPlan:
     n: int                         # series length (last axis)
     weighted: bool
     numerics: NumericsPolicy
+    distributed: bool = False      # one shard of a mesh fit (all-reduced)
+    devices: int = 1               # mesh size over the data axes
     reason: str = ""               # human-readable why (logs / tests)
 
     @property
@@ -91,7 +93,8 @@ class FitPlan:
         return "packed" if self.path == KERNEL_PACKED else "plain"
 
     def describe(self) -> str:
-        return (f"FitPlan[{self.path}] deg={self.degree} "
+        shard = f" x{self.devices}shards" if self.distributed else ""
+        return (f"FitPlan[{self.path}{shard}] deg={self.degree} "
                 f"basis={self.basis} batch={self.batch} n={self.n} "
                 f"accum={self.numerics.accum_dtype} "
                 f"kahan={self.numerics.compensated} "
@@ -168,14 +171,19 @@ def plan_fit(shape: tuple[int, ...], degree: int, *,
              cond_cap: float | None = None,
              device: torch.device | str | None = None,
              backend: str | None = None,
+             mesh=None,
+             data_axes: tuple[str, ...] = (),
              workload: str = "moments") -> FitPlan:
     """Resolve an execution path + numerics policy from static problem
     facts.  ``device`` is where the data lives; ``backend`` ("cuda" or
-    "cpu") overrides its type for what-if planning.  ``workload`` is
-    "moments", "select" (the degree-sweep accumulation of ``select/``,
-    routed exactly like "moments": its fold axis is an ordinary series
-    batch, so the packed kernel takes it on CUDA; the numerics are
-    resolved at the MAX candidate degree, where conditioning is worst),
+    "cpu") overrides its type for what-if planning.  ``mesh``/
+    ``data_axes``: the ``DeviceMesh`` of a distributed fit; ``shape`` is
+    then one rank's shard shape and the plan is marked distributed.
+    ``workload`` is "moments", "select" (the degree-sweep accumulation of
+    ``select/``, routed exactly like "moments": its fold axis is an
+    ordinary series batch, so the packed kernel takes it on CUDA; the
+    numerics are resolved at the MAX candidate degree, where conditioning
+    is worst),
     "report" (the fused evaluate/residual pass, which monomial fits take
     on every backend, as in the reference) or "lspia" (the matrix-free
     iterative fit: no Gram at all, always the reference basis ops)."""
@@ -202,8 +210,13 @@ def plan_fit(shape: tuple[int, ...], degree: int, *,
                                     normalize=normalize,
                                     compensated=compensated, solver=solver,
                                     fallback=fallback, cond_cap=cond_cap)
+    devices = 1
+    if mesh is not None:
+        for ax in data_axes:
+            devices *= mesh.size(mesh.mesh_dim_names.index(ax))
     common = dict(degree=degree, basis=basis, batch=batch, n=n,
-                  weighted=weighted, numerics=numerics)
+                  weighted=weighted, numerics=numerics,
+                  distributed=devices > 1, devices=devices)
 
     monomial = basis == "monomial"
     if engine in ("kernel", "kernel_plain", "kernel_packed"):
@@ -288,6 +301,34 @@ def moment_counter() -> dict:
     """Snapshot of the moment-pass counter: {"calls": int, "points": int}."""
     with _MOMENT_COUNTER_LOCK:
         return dict(_MOMENT_COUNTER)
+
+
+# counter on the mesh executor's all-reduces: calls and payload bytes in
+# all, and calls per reduction ("sum", "min", "max"); the distributed
+# fit's O(m²) payload, the same at any n, is asserted against it
+_COLLECTIVE_COUNTER = {"calls": 0, "bytes": 0, "sum": 0, "min": 0, "max": 0}
+_COLLECTIVE_COUNTER_LOCK = threading.Lock()
+
+
+def record_collective(op: str, nbytes: int) -> None:
+    """Count one all-reduce of ``nbytes`` payload bytes under ``op``."""
+    with _COLLECTIVE_COUNTER_LOCK:
+        _COLLECTIVE_COUNTER["calls"] += 1
+        _COLLECTIVE_COUNTER["bytes"] += int(nbytes)
+        _COLLECTIVE_COUNTER[op] += 1
+
+
+def reset_collective_counter() -> None:
+    with _COLLECTIVE_COUNTER_LOCK:
+        for k in _COLLECTIVE_COUNTER:
+            _COLLECTIVE_COUNTER[k] = 0
+
+
+def collective_counter() -> dict:
+    """Snapshot of the all-reduce counter: {"calls", "bytes", "sum",
+    "min", "max"}."""
+    with _COLLECTIVE_COUNTER_LOCK:
+        return dict(_COLLECTIVE_COUNTER)
 
 
 def compute_moments(plan: FitPlan, x: torch.Tensor, y: torch.Tensor,

@@ -381,3 +381,48 @@ def test_cuda_launch_serve_fleet_assert_parity(cuda, capsys):
     from repro_torch.launch import serve
     assert serve.main(["--workload", "fleet", "--assert-parity"]) == 0
     assert "parity OK" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_nccl_mesh_fit_matches_eager(cuda, tmp_path):
+    """A 1-rank NCCL mesh on the card: the shard's moment pass launches
+    moments_plain, the fold stack of a search the kernel plan_fit picks,
+    and the results match eager api.fit (the κ-scaled bound of
+    tests/test_api.py; the same degree)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch import api, engine
+    from repro_torch.launch import mesh as mesh_lib
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=timedelta(seconds=60))
+    try:
+        mesh = mesh_lib.make_host_mesh(data=1)
+        g = torch.Generator(device=cuda).manual_seed(5)
+        x = torch.rand(1 << 20, generator=g, device=cuda) * 4 - 2
+        y = 0.5 - x + 0.75 * x ** 3 + 0.1 * torch.randn(
+            x.shape, generator=g, device=cuda)
+        for spec, kernel in (
+                (api.FitSpec(degree=3), "moments_plain"),
+                (api.FitSpec(degree=api.DegreeSearch(max_degree=6,
+                                                     folds=5)),
+                 "moments_packed")):
+            K.reset_launch_counts()
+            engine.reset_collective_counter()
+            got = spec.distributed(mesh)(x, y)
+            assert K.launch_counts()[kernel] == 1
+            assert engine.collective_counter()["calls"] >= 1
+            want = api.fit(x, y, spec)
+            assert got.best_degree == want.best_degree
+            kappa = float(want.poly.diagnostics.condition.max())
+            c = want.coeffs.cpu().numpy()
+            tol = 200 * kappa * np.finfo(np.float32).eps * max(
+                1.0, float(np.abs(c).max()))
+            # a mesh search keeps the zero-padded (max_degree+1) layout
+            np.testing.assert_allclose(got.coeffs.cpu().numpy()[:c.size],
+                                       c, rtol=0, atol=tol)
+    finally:
+        dist.destroy_process_group()

@@ -67,6 +67,21 @@ kernels from ``src/repro_torch/kernels/csrc``, then:
            2^26-point block of the same series, run LSE, decay, IRLS and
            the search: bit-equal across ranks, against (a), count 2^28,
            the all-reduce payload the same at 2^26 and 2^25 points per rank
+  phase 14 the model zoo's serving path (no fit kernel runs): (a)
+           internlm2-1.8b at its published size (24 layers, d 2048, f32
+           params drawn on the card, bf16 compute): prefill(31) + decode
+           against forward_train(32) at b = 2, float32 forward on the card
+           against the CPU, a 4096-token prefill through the chunked path
+           against the unchunked one; (b) the reference launcher's traffic
+           through repro_torch.launch.serve --workload tokens (12 requests,
+           4 slots, max_len 128, 24 new tokens, T = 0.8); (c) the same at
+           a serving scale (64 requests, 16 slots, max_len 2048, prompts
+           log-uniform in [16, 1024], 64 new tokens, half greedy): tok/s,
+           prefill tokens/s, decode ms per step (CUDA events) beside their
+           bounds; (d) phi3.5-moe and gemma2-27b at published widths with
+           n_layers cut to 2: prefill/decode consistency, and gemma2's
+           6144-token prefill (its 4096 window binds) chunked against
+           unchunked at float32
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure, or when
@@ -403,6 +418,7 @@ def main() -> int:
     launches11, fleet_out = phase11(ctx)
     launches12, async_out = phase12(ctx)
     launches13, mesh_out = phase13(ctx)
+    launches14, zoo_out = phase14(ctx)
 
     # ----------------------------------------------------------------- report
     replaces = {   # the TPU kernel bodies in the JAX reference
@@ -420,7 +436,8 @@ def main() -> int:
     launches = {k: sum(run[k] for run in (launches2, launches3, launches5,
                                           launches6, launches7, launches8,
                                           launches9, launches10, launches11,
-                                          launches12, launches13))
+                                          launches12, launches13,
+                                          launches14))
                 for k in launches2}
     kernels = []
     for name in ("moments_plain", "moments_packed", "moments_packed_ring",
@@ -456,7 +473,8 @@ def main() -> int:
         f"{json.dumps(stream_ms)}; phase9 LSPIA {json.dumps(lspia_ms)}; "
         f"phase10 serving {json.dumps(serve_out)}; phase11 fleet "
         f"{json.dumps(fleet_out)}; phase12 async LSPIA "
-        f"{json.dumps(async_out)}; phase13 mesh {json.dumps(mesh_out)}; copy "
+        f"{json.dumps(async_out)}; phase13 mesh {json.dumps(mesh_out)}; "
+        f"phase14 zoo {json.dumps(zoo_out)}; copy "
         f"{copy_bw / 1e9:.1f} GB/s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -1331,13 +1349,38 @@ def _fleet_run(c, traffic, chaos=None):
     return fleet, reqs, handles, launches, out
 
 
+def _trace_device_us(prof):
+    """Device time in a finished ``torch.profiler`` run, read from kineto's
+    own chrome-trace export (building the profiler's Python event tree
+    with ``key_averages`` takes minutes for 10⁵ events): the total of
+    kernels, copies and sets in µs, the copies' share, the kernels' time
+    by name and their count."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev_us = copy_us = 0.0
+    by_name: dict[str, float] = {}
+    n_kernels = 0
+    for e in events:
+        cat = str(e.get("cat", "")).lower()
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t = float(e.get("dur", 0.0))
+        dev_us += t
+        if cat == "kernel":
+            name = e.get("name", "")
+            by_name[name] = by_name.get(name, 0.0) + t
+            n_kernels += 1
+        if cat == "gpu_memcpy":
+            copy_us += t
+    return dev_us, copy_us, by_name, n_kernels
+
+
 def _fleet_busy(c, traffic, chaos, wall_s):
     """The same run again under ``torch.profiler``: device time (kernels
-    and copies) per run, and its share of the unprofiled run's wall.  The
-    trace is read from kineto's own chrome-trace export: building the
-    profiler's Python event tree for the run's ~3·10⁵ events
-    (``key_averages``) takes minutes."""
-    import tempfile
+    and copies) per run, and its share of the unprofiled run's wall."""
     from torch.profiler import ProfilerActivity, profile
     fleet = _fleet(c, chaos)
     fleet.warmup()
@@ -1348,22 +1391,8 @@ def _fleet_busy(c, traffic, chaos, wall_s):
         fleet.run(max_ticks=200_000)
         c["sync"]()
     wall = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "fleet_trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    dev_us = kern_us = copy_us = 0.0
-    for e in events:
-        cat = str(e.get("cat", "")).lower()
-        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        t = float(e.get("dur", 0.0))
-        dev_us += t
-        if cat == "kernel" and "moments" in e.get("name", ""):
-            kern_us += t
-        if cat == "gpu_memcpy":
-            copy_us += t
+    dev_us, copy_us, by_name, _ = _trace_device_us(prof)
+    kern_us = sum(t for k, t in by_name.items() if "moments" in k)
     require(dev_us > 0 and kern_us > 0,
             f"phase11 profiler saw {dev_us} us of device time, {kern_us} "
             "us in the moment kernels")
@@ -2009,6 +2038,352 @@ def phase13(c):
         f"{TOL_MAIN}); "
         f"launches {launches_b}; {wall_b:.1f} s with process start")
     return total, out
+
+
+ZOO_ARCH = "internlm2-1.8b"
+ZOO_SEED = 14
+ZOO_CUT = ("phi3.5-moe-42b-a6.6b", "gemma2-27b")   # published widths, 2 layers
+ZOO_CUT_LAYERS = 2
+ZOO_TOL = 5e-2         # bf16 paths: max|Δ| / max|ref| (the reference's bar)
+ZOO_TOL_F32 = 1e-4     # float32 sums of up to 8192 terms in other orders
+ZOO_LONG = 4096        # 14a's prefill through the chunked path (2 chunks)
+ZOO_WINDOW_LONG = 6144  # gemma2's prefill past its 4096 window (3 chunks)
+# 14c: the launcher's traffic at a serving scale
+ZOO_REQUESTS, ZOO_SLOTS, ZOO_MAX_LEN, ZOO_NEW = 64, 16, 2048, 64
+ZOO_PROMPT = (16, 1024)    # prompt lengths log-uniform in [16, 1024]
+ZOO_TRACE_STEPS = 16       # full-pool decode steps timed, then profiled
+PEAK_BF16_FLOPS = 989e12
+
+
+def _zoo_free(c):
+    c["sync"]()
+    if c["dev"].type == "cuda":
+        c["torch"].cuda.empty_cache()
+
+
+def _zoo_copy(tf, params, device):
+    """A copy of the model on ``device`` (the original stays where it is)."""
+    out = tf.Transformer(params.cfg, device="meta")
+    out.load_state_dict({k: v.to(device) for k, v in
+                         params.state_dict().items()}, assign=True)
+    return out
+
+
+def _zoo_rel(torch, got, want):
+    d = (got.float() - want.float()).abs().max().item()
+    return d / max(want.float().abs().max().item(), 1e-30)
+
+
+def _zoo_consistency(c, model, params, b, s, tag):
+    """prefill(s - 1) + decode against forward_train(s) at the config's
+    compute dtype, everything on the context's device."""
+    torch, dev = c["torch"], c["dev"]
+    g = torch.Generator(device=dev).manual_seed(ZOO_SEED)
+    toks = torch.randint(3, model.cfg.vocab_size, (b, s), generator=g,
+                         device=dev)
+    full, _ = model.forward_train(params, {"tokens": toks})
+    logits_p, st = model.prefill(params, {"tokens": toks[:, :s - 1]}, 2 * s)
+    logits_d, st = model.decode_step(params, toks[:, s - 1:], st)
+    for name, t in (("logits", full), ("prefill logits", logits_p),
+                    ("decode logits", logits_d), ("cache", st["k"])):
+        require(t.device.type == dev.type, f"{tag} {name} on {t.device}")
+        require(bool(torch.isfinite(t.float()).all()), f"{tag} {name} finite")
+    err_d = _zoo_rel(torch, logits_d[:, 0], full[:, -1])
+    err_p = _zoo_rel(torch, logits_p[:, 0], full[:, -2])
+    require(err_d <= ZOO_TOL and err_p <= ZOO_TOL,
+            f"{tag} prefill/decode vs forward_train {err_p:.3e}/{err_d:.3e}")
+    return {"prefill_vs_train": err_p, "decode_vs_train": err_d}
+
+
+def _zoo_chunked(c, model, params, cfg32, n, tag):
+    """An n-token prefill through the query-chunked path against the
+    unchunked one, float32 compute; returns the error and the logits."""
+    torch, dev = c["torch"], c["dev"]
+    from repro_torch.models import transformer as tf
+    g = torch.Generator(device=dev).manual_seed(ZOO_SEED + 1)
+    toks = torch.randint(3, cfg32.vocab_size, (1, n), generator=g,
+                         device=dev)
+    q_chunk = tf.Q_CHUNK
+    require(n > q_chunk and n % q_chunk == 0, f"{tag} chunks {n}/{q_chunk}")
+    chunked, _ = tf.prefill(params, cfg32, toks, n)
+    tf.Q_CHUNK = n
+    try:
+        whole, _ = tf.prefill(params, cfg32, toks, n)
+    finally:
+        tf.Q_CHUNK = q_chunk
+    err = _zoo_rel(torch, chunked, whole)
+    require(err <= ZOO_TOL_F32, f"{tag} chunked vs unchunked {err:.3e}")
+    return err, toks, chunked
+
+
+def _zoo_traffic(vocab):
+    """14c's requests: (prompt, temperature), prompt lengths log-uniform in
+    ``ZOO_PROMPT``, every other request greedy, the rest at T = 0.8."""
+    rng = np.random.default_rng(7)
+    lo, hi = ZOO_PROMPT
+    out = []
+    for i in range(ZOO_REQUESTS):
+        n = int(np.exp(rng.uniform(np.log(lo), np.log(hi))))
+        out.append((rng.integers(3, vocab - 1, n).tolist(),
+                    0.0 if i % 2 else 0.8))
+    return out
+
+
+def _zoo_bounds(eng):
+    """The least time of one decode step and of one prefill on this card,
+    as functions of the work the step needs: the larger of its bytes over
+    the memory rate and its operations over the bf16 peak.  A decode step
+    reads the compute weights once and, for each active slot, the K and V
+    rows below the pooled length (the rows it attends to); a prefill of s
+    tokens reads the weights once and does 2·N·s operations plus causal
+    attention's 2·L·H·hd·s² and the last position's logits."""
+    zcfg, p = eng.model.cfg, eng.compute_params
+    weight_bytes = sum(t.numel() * t.element_size() for t in p.parameters())
+    k = eng.state["k"]
+    hd = zcfg.resolved_head_dim
+    row_bytes = zcfg.n_layers * 2 * zcfg.n_kv_heads * hd * k.element_size()
+    embed = zcfg.vocab_size * zcfg.d_model
+    non_embed = zcfg.param_count() - embed
+
+    def decode(active, length):
+        ops = active * (2 * non_embed + 2 * embed
+                        + 4 * zcfg.n_layers * zcfg.n_heads * hd * length)
+        return max((weight_bytes + active * length * row_bytes)
+                   / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS) * 1e3
+
+    def prefill(n):
+        ops = (2 * non_embed * n + 2 * embed
+               + 2 * zcfg.n_layers * zcfg.n_heads * hd * n * n)
+        return max((weight_bytes + n * row_bytes) / PEAK_BYTES_PER_S,
+                   ops / PEAK_BF16_FLOPS) * 1e3
+
+    # what this implementation reads: the whole max_len buffer, masked
+    buffer_ms = (weight_bytes + k.numel() * 2 * k.element_size()) \
+        / PEAK_BYTES_PER_S * 1e3
+    return decode, prefill, buffer_ms, weight_bytes
+
+
+def _zoo_serve(c, model, params):
+    """14c: ``ZOO_REQUESTS`` requests through a ServeEngine on the card,
+    each ``engine.step`` between two CUDA events; decode ms per step over
+    the steps that admitted nothing, beside each step's bound.  Then the
+    prompts once more through ``model.prefill`` (CUDA events) for prefill
+    tokens/s, and a window of full-pool decode steps, timed and then
+    profiled, for the device's busy share and where its time goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import EngineConfig, ServeEngine
+    torch, dev = c["torch"], c["dev"]
+    ecfg = EngineConfig(n_slots=ZOO_SLOTS, max_len=ZOO_MAX_LEN)
+    eng = ServeEngine(model, params, ecfg,
+                      generator=torch.Generator(device=dev).manual_seed(7))
+    require(eng.state["k"].device.type == dev.type
+            and eng.device.type == dev.type, f"14c engine on {eng.device}")
+    traffic = _zoo_traffic(model.cfg.vocab_size)
+    reqs = [eng.submit(p, ZOO_NEW, t) for p, t in traffic]
+    decode_bound, prefill_bound, buffer_ms, weight_bytes = _zoo_bounds(eng)
+
+    def produced():
+        return sum(len(r.out_tokens) for r in reqs)
+
+    steps = []
+    c["sync"]()
+    t0 = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        n_pre, n_tok = eng.stats["prefills"], produced()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        eng.step()
+        ev[1].record()
+        admitted = eng.stats["prefills"] - n_pre
+        steps.append((ev, admitted, produced() - n_tok - admitted,
+                      eng.state["len"]))
+    c["sync"]()
+    wall = time.perf_counter() - t0
+    toks = produced()
+    require(all(r.done for r in reqs), "14c unfinished")
+    peak = eng.stats["peak_len"]
+    require(peak < ZOO_MAX_LEN, f"14c peak pooled length {peak}")
+    decode = [(ev[0].elapsed_time(ev[1]), decode_bound(active, length))
+              for ev, admitted, active, length in steps if not admitted]
+    ms = [m for m, _ in decode]
+    o = {"requests": len(reqs), "done": sum(r.done for r in reqs),
+         "tokens": toks, "wall_s": wall, "tok_per_s": toks / wall,
+         **eng.stats, "decode_steps_timed": len(decode),
+         "decode_ms_median": statistics.median(ms),
+         "decode_ms_mean": sum(ms) / len(ms),
+         "decode_bound_ms_mean": sum(b for _, b in decode) / len(decode),
+         "decode_share_of_bound": sum(b for _, b in decode) / sum(ms),
+         "decode_bound_ms_whole_buffer": buffer_ms,
+         "weight_bytes": weight_bytes}
+
+    # prefill tokens/s: each prompt once more, alone, as the engine admits it
+    pre_ms = pre_bound = 0.0
+    cp = eng.compute_params
+    for p, _ in traffic:
+        t = torch.tensor([p], dtype=torch.int64, device=dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        model.prefill(cp, {"tokens": t}, ZOO_MAX_LEN)
+        ev[1].record()
+        c["sync"]()
+        pre_ms += ev[0].elapsed_time(ev[1])
+        pre_bound += prefill_bound(len(p))
+    o.update(prefill_ms=pre_ms, prefill_tok_per_s=o["prefill_tokens"]
+             / (pre_ms * 1e-3), prefill_bound_ms=pre_bound,
+             prefill_share_of_bound=pre_bound / pre_ms)
+
+    # the window: a full pool of fresh requests beside the peak length,
+    # ZOO_TRACE_STEPS decode steps timed, then as many under the profiler
+    for p, _ in traffic[:ZOO_SLOTS]:
+        eng.submit(p, 3 + 2 * ZOO_TRACE_STEPS, 0.0)
+    eng.step()                                   # admits all of them
+    require(not eng.queue and all(eng.slot_req), "14c window: full pool")
+    win = []
+    for _ in range(ZOO_TRACE_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        eng.step()
+        ev[1].record()
+        win.append((ev, decode_bound(ZOO_SLOTS, eng.state["len"])))
+    c["sync"]()
+    win_ms = statistics.median(ev[0].elapsed_time(ev[1]) for ev, _ in win)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(ZOO_TRACE_STEPS):
+            eng.step()
+        c["sync"]()
+    require(all(r is not None for r in eng.slot_req), "14c window ended")
+    dev_us, copy_us, by_name, n_kernels = _trace_device_us(prof)
+    require(dev_us > 0, "14c profiler saw no device time")
+    per_step = dev_us / ZOO_TRACE_STEPS / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    o["window"] = {
+        "slots": ZOO_SLOTS, "pooled_len": eng.state["len"],
+        "ms_median": win_ms,
+        "bound_ms_mean": sum(b for _, b in win) / len(win),
+        "device_ms_per_step": per_step,
+        "device_busy_share": per_step / win_ms,
+        "copy_ms_per_step": copy_us / ZOO_TRACE_STEPS / 1e3,
+        "kernels_per_step": n_kernels / ZOO_TRACE_STEPS,
+        "top_kernels_ms_per_step": {k[:240]: t / ZOO_TRACE_STEPS / 1e3
+                                    for k, t in top}}
+    log(f"phase14c {json.dumps(o)}")
+    return o
+
+
+def phase14(c):
+    """The model zoo's serving path (no fit kernel runs here)."""
+    import dataclasses
+
+    torch, dev, K = c["torch"], c["dev"], c["K"]
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as tf
+    K.reset_launch_counts()
+    out = {}
+    t0 = time.perf_counter()
+
+    # 14a: internlm2-1.8b at its published size, seeded weights on the card
+    cfg = configs.get_config(ZOO_ARCH)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(
+        ZOO_SEED), device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    require(all(p.device.type == dev.type and p.dtype == torch.float32
+                for p in params.parameters()), "14a f32 params on the card")
+    cp = model.compute_params(params)
+    a = _zoo_consistency(c, model, cp, 2, 32, "14a")
+    # the card at float32 compute against the CPU on a small input
+    g = torch.Generator(device=dev).manual_seed(ZOO_SEED + 2)
+    toks = torch.randint(3, cfg.vocab_size, (2, 8), generator=g, device=dev)
+    gpu32, _ = tf.forward_train(params, cfg32, toks)
+    cpu32, _ = tf.forward_train(_zoo_copy(tf, params, "cpu"), cfg32,
+                                toks.cpu())
+    a["card_vs_cpu_f32"] = _zoo_rel(torch, gpu32.cpu(), cpu32)
+    require(a["card_vs_cpu_f32"] <= ZOO_TOL_F32,
+            f"14a card vs CPU float32 {a['card_vs_cpu_f32']:.3e}")
+    a["chunked_vs_unchunked_f32"], long_toks, _ = _zoo_chunked(
+        c, model, params, cfg32, ZOO_LONG, "14a")
+    # the same long prompt at the config's bf16, chunked against unchunked
+    q_chunk = tf.Q_CHUNK
+    chunked, st_c = tf.prefill(cp, cfg, long_toks, long_toks.shape[1])
+    tf.Q_CHUNK = long_toks.shape[1]
+    try:
+        whole, st_w = tf.prefill(cp, cfg, long_toks, long_toks.shape[1])
+    finally:
+        tf.Q_CHUNK = q_chunk
+    a["chunked_vs_unchunked_bf16"] = _zoo_rel(torch, chunked, whole)
+    a["chunked_cache_vs_unchunked_bf16"] = _zoo_rel(torch, st_c["k"],
+                                                    st_w["k"])
+    require(max(a["chunked_vs_unchunked_bf16"],
+                a["chunked_cache_vs_unchunked_bf16"]) <= ZOO_TOL,
+            f"14a bf16 chunked vs unchunked {a}")
+    a.update(params=n_params, param_gb_f32=n_params * 4 / 1e9)
+    out["14a"] = a
+    log(f"phase14a {cfg.arch}: {n_params} params (f32 {n_params * 4 / 1e9:.2f}"
+        f" GB) on {dev}; " + ", ".join(f"{k} {v:.3e}" for k, v in a.items()
+                                      if isinstance(v, float)))
+    del gpu32, cpu32, chunked, whole, st_c, st_w
+    _zoo_free(c)
+
+    # 14b: the reference launcher's own traffic, through the launcher
+    run = serve_lib.run(["--workload", "tokens"])
+    eng, reqs = run.pop("engine"), run.pop("reqs")
+    require(run["done"] == run["requests"], "14b unfinished")
+    require(eng.device.type == dev.type
+            and eng.state["k"].device.type == dev.type,
+            f"14b engine on {eng.device}")
+    require(all(len(r.out_tokens) >= 1 for r in reqs), "14b tokens")
+    out["14b"] = run
+    log(f"phase14b {json.dumps(run)}")
+    del eng, reqs
+    _zoo_free(c)
+
+    # 14c: the same traffic's shape at a serving scale, on 14a's model
+    out["14c"] = _zoo_serve(c, model, params)
+    del params, cp
+    _zoo_free(c)
+
+    # 14d: two more families at their published widths, 2 layers each
+    for arch in ZOO_CUT:
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  n_layers=ZOO_CUT_LAYERS)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        model = get_model(cfg)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(
+            ZOO_SEED), device=dev)
+        cp = model.compute_params(params)
+        # 8 tokens a row: no expert can hold more than the capacity of 8,
+        # so no train-side drop separates the paths (the reference's
+        # documented train/serve divergence of capacity-based MoE)
+        d = _zoo_consistency(c, model, cp, 2, 8 if cfg.n_experts else 32,
+                             f"14d {arch}")
+        if cfg.sliding_window:
+            n = ZOO_WINDOW_LONG
+            require(n > cfg.sliding_window, f"{arch} window does not bind")
+            d["chunked_vs_unchunked_f32"], toks, chunked = _zoo_chunked(
+                c, model, params, cfg32, n, f"14d {arch}")
+            nowin = dataclasses.replace(cfg32, sliding_window=None)
+            wide, _ = tf.prefill(params, nowin, toks, n)
+            d["window_effect"] = _zoo_rel(torch, wide, chunked)
+            require(d["window_effect"] > 1e-3,
+                    f"{arch}: the window changed nothing at {n} tokens")
+            del wide, chunked
+        d["n_layers"] = (f"{ZOO_CUT_LAYERS} of "
+                         f"{configs.get_config(arch).n_layers}")
+        out["14d " + arch] = d
+        log(f"phase14d {arch} (n_layers cut to {ZOO_CUT_LAYERS}; published "
+            f"widths): {json.dumps(d)}")
+        del params, cp
+        _zoo_free(c)
+    launches = K.launch_counts()
+    require(not any(launches.values()),
+            f"the zoo path launched a fit kernel: {launches}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase14 {out['wall_s']:.1f} s; fit-kernel launches {launches}")
+    return launches, out
 
 
 def _host_ms(torch, fn):

@@ -1,0 +1,12 @@
+"""Yi-6B: llama-arch GQA kv=4 [arXiv:2403.04652]."""
+import dataclasses
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch="yi-6b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=4, d_ff=11008,
+    vocab_size=64000, rope_theta=5000000.0)
+
+SMOKE = dataclasses.replace(
+    CONFIG, arch="yi-smoke", n_layers=2, d_model=64, n_heads=4,
+    n_kv_heads=2, d_ff=128, vocab_size=256)

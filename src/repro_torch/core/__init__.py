@@ -24,6 +24,7 @@ from repro_torch.core.distributed import (make_distributed_fit,
                                           local_moments, psum_moments)
 from repro_torch.core.streaming import (StreamState, update, current_fit,
                                         current_sse)
+from repro_torch.core.scaling_laws import PowerLaw, fit_power_law
 
 # repro_torch.select builds on these modules, so its names are re-exported
 # lazily: an eager import here would be circular
@@ -53,6 +54,7 @@ __all__ = [
     "make_distributed_fit", "make_distributed_select",
     "local_moments", "psum_moments",
     "StreamState", "update", "current_fit", "current_sse",
+    "PowerLaw", "fit_power_law",
     "select_degree", "DegreeSearch", "Selection", "SweepResult",
     "sweep_from_moments",
 ]

@@ -4,7 +4,9 @@ The reference's ``Moments``, ``Domain``, ``Polynomial``, ``FitSpec``,
 ``ServicePolicy`` and ``StreamState`` are read by their field names, with every array taken through
 ``numpy.asarray``: this module never imports the reference.  The tests feed
 the reference's state through it so that both packages solve the same
-thing, and start both from the same stream state.
+thing, and start both from the same stream state.  ``model_params`` and
+``decode_state`` carry a zoo model's parameter tree and KV cache the same
+way, so both packages run one model from one cache.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.core.streaming import StreamState
 from repro_torch.device import resolve_device
 from repro_torch.engine.plan import NumericsPolicy
 from repro_torch.select.sweep import DegreeSearch
+from repro_torch.models import transformer
 
 MOMENT_FIELDS = ("gram", "vty", "yty", "count", "weight_sum")
 
@@ -29,6 +32,15 @@ MOMENT_FIELDS = ("gram", "vty", "yty", "count", "weight_sum")
 def tensor(a, device=None) -> torch.Tensor:
     """A numpy-convertible array as a tensor of the same dtype."""
     return torch.from_numpy(np.array(a, copy=True)).to(resolve_device(device))
+
+
+def _leaf(a, device) -> torch.Tensor:
+    """An array leaf as a tensor of its dtype (bfloat16 goes through
+    float32, which holds it exactly: numpy has no bfloat16 of torch's)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return tensor(a.astype(np.float32), device).to(torch.bfloat16)
+    return tensor(a, device)
 
 
 def torch_dtype(dtype):
@@ -108,3 +120,45 @@ def to_numpy(obj) -> dict:
             v = to_numpy(v)
         out[f.name] = v
     return out
+
+
+def model_params(ref_tree, cfg, device=None):
+    """A reference transformer parameter tree (``layers`` a tuple of ``g``
+    stacks with a leading ``n_groups`` axis) as the port's model: layer
+    ``i`` is slot ``i % g`` of group ``i // g``."""
+    dev = resolve_device(device)
+    g = transformer.group_size(cfg)
+    model = transformer.Transformer(cfg, device="meta")
+
+    def assign(mod, tree, pick):
+        for name, sub in tree.items():
+            if isinstance(sub, dict):
+                assign(getattr(mod, name), sub, pick)
+            else:
+                setattr(mod, name, torch.nn.Parameter(
+                    _leaf(pick(np.asarray(sub)), dev), requires_grad=False))
+
+    assign(model.embed, ref_tree["embed"], lambda a: a)
+    assign(model.final_norm, ref_tree["final_norm"], lambda a: a)
+    for i, layer in enumerate(model.layers):
+        assign(layer, ref_tree["layers"][i % g], lambda a, i=i: a[i // g])
+    left = [n for n, p in model.named_parameters() if p.device.type == "meta"]
+    if left:
+        raise ValueError(f"the reference tree has no {left}")
+    return model
+
+
+def decode_state(ref_state, cfg, device=None) -> dict:
+    """A reference decode state (grouped cache stacks, ``len`` a scalar) as
+    the port's: ``k``/``v`` of (n_layers, batch, max_len, kv_heads,
+    head_dim) in layer order, ``len`` a host int."""
+    dev = resolve_device(device)
+    g = transformer.group_size(cfg)
+    layers = ref_state["layers"]
+
+    def stack(key):
+        return torch.stack([_leaf(np.asarray(layers[i % g][key])[i // g], dev)
+                            for i in range(cfg.n_layers)])
+
+    return {"k": stack("k"), "v": stack("v"),
+            "len": int(np.asarray(ref_state["len"]))}

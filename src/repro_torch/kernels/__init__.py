@@ -6,3 +6,8 @@ the GPU: ``csrc/moments.cu`` and ``csrc/moments_ring.cu`` (built by
 ``build.py``), launched by ``moments.py``, wrapped by ``ops.py``, with the
 ring's block size tuned by ``tune.py`` and the plain PyTorch oracles in
 ``ref.py``."""
+from repro_torch.kernels.ops import moments as compute_moments  # noqa: F401
+# (exported under a distinct name so the ``kernels.moments`` submodule
+# stays importable)
+
+__all__ = ["compute_moments"]

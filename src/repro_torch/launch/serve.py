@@ -11,8 +11,12 @@ fault injection, parity check against the fault-free run):
     PYTHONPATH=src python -m repro_torch.launch.serve --workload fleet \
         --workers 4 --chaos "crash=1,stall=1,poison=1" --assert-parity
 
-``--workload tokens`` is not ported yet: it exits non-zero naming its
-ROADMAP.md item.
+Token serving (the zoo's decode engine; by default internlm2-1.8b at its
+published size, 12 requests on 4 slots, as the reference launcher):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload tokens
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload tokens \
+        --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -21,12 +25,6 @@ import sys
 import time
 
 import numpy as np
-
-NOT_PORTED = {
-    "tokens": "the token-decode engine (serve/engine.py) is ROADMAP.md "
-              "Queue 1 item 15",
-}
-
 
 def _sync(device) -> None:
     import torch
@@ -213,13 +211,64 @@ def _obs_finish(args, fleet, reqs) -> None:
     print(fleet.metrics.render_prometheus(), end="")
 
 
-def main(argv=None) -> int:
+def serve_tokens(args) -> dict:
+    """Serve ``--requests`` prompts through the token ServeEngine on a
+    model drawn from seed 0, as the reference launcher does; returns the
+    run's counts and its host-clock time."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.device import resolve_device
+    from repro_torch.models import get_model
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    dev = resolve_device(args.device)
+    cfg = (configs.get_smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    model = get_model(cfg)
+    params = model.init_params(0, device=dev)
+    engine = ServeEngine(model, params,
+                         EngineConfig(n_slots=args.slots,
+                                      max_len=args.max_len),
+                         generator=torch.Generator(device=dev).manual_seed(7))
+
+    rng = np.random.default_rng(7)
+    reqs = []
+    for i in range(args.requests):
+        prompt = rng.integers(3, cfg.vocab_size - 1, 8 + i % 8).tolist()
+        reqs.append(engine.submit(prompt, max_new_tokens=args.max_new,
+                                  temperature=0.8))
+    _sync(dev)
+    t0 = time.perf_counter()
+    engine.run()
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    done = sum(r.done for r in reqs)
+    toks = sum(len(r.out_tokens) for r in reqs)
+    out = {"arch": cfg.arch, "device": str(dev), "requests": len(reqs),
+           "done": done, "tokens": toks, "wall_s": dt, "tok_per_s": toks / dt,
+           **engine.stats, "engine": engine, "reqs": reqs}
+    print(f"[serve] {cfg.arch} on {dev}: {done}/{len(reqs)} finished, "
+          f"{toks} tokens in {dt:.1f}s ({toks / dt:.1f} tok/s); "
+          f"{out['prefill_tokens']} prompt tokens, "
+          f"{out['decode_steps']} decode steps, "
+          f"peak pooled length {out['peak_len']}/{args.max_len}")
+    for r in reqs[:3]:
+        print(f"  req {r.uid}: {len(r.out_tokens)} tokens "
+              f"{r.out_tokens[:10]}...")
+    if done != len(reqs):
+        raise RuntimeError(f"{len(reqs) - done} requests not finished")
+    return out
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("fits", "fleet", "tokens"),
                     default="fits")
-    # per-workload defaults: fits churns 200 requests, the fleet 32
+    # per-workload defaults: fits churns 200 requests on 8 slots, the
+    # fleet 32, tokens decodes 12 on 4 slots
     ap.add_argument("--requests", type=int, default=None)
-    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=None)
     ap.add_argument("--degree", type=int, default=3)
     ap.add_argument("--buckets", type=int, nargs="+", default=[256, 2048])
     ap.add_argument("--min-n", type=int, default=16)
@@ -250,19 +299,35 @@ def main(argv=None) -> int:
     ap.add_argument("--slo-p99", type=float, default=200.0,
                     help="latency p99 SLO threshold (ticks) the SLO "
                          "monitor forecasts breaches against")
+    # token-serving knobs
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced smoke config")
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--device", default=None,
                     help="torch device; default CUDA (no CPU fallback)")
-    args = ap.parse_args(argv)
-    if args.workload in NOT_PORTED:
-        print(f"--workload {args.workload} is not ported yet: "
-              f"{NOT_PORTED[args.workload]}", file=sys.stderr)
-        return 2
+    return ap
+
+
+def run(argv=None):
+    """Parse ``argv``, fill the workload's defaults and serve it; returns
+    what the workload returns (``serve_tokens``' counts and times)."""
+    args = parser().parse_args(argv)
     if args.workload == "fleet":
         args.requests = 32 if args.requests is None else args.requests
-        serve_fleet(args)
-    else:
-        args.requests = 200 if args.requests is None else args.requests
-        serve_fits(args)
+        return serve_fleet(args)
+    if args.workload == "tokens":
+        args.requests = 12 if args.requests is None else args.requests
+        args.slots = 4 if args.slots is None else args.slots
+        return serve_tokens(args)
+    args.requests = 200 if args.requests is None else args.requests
+    args.slots = 8 if args.slots is None else args.slots
+    return serve_fits(args)
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

@@ -1,0 +1,225 @@
+"""Grouped-query attention with RoPE, optional QKV bias, logit softcap,
+sliding-window masking, and a KV cache for decode (port of
+``repro.models.attention``).
+
+Covers: llama-family (internlm2/yi/mistral-llava), qwen1.5 (QKV bias),
+gemma2 (softcap + local/global alternation), dbrx/phi3.5 (GQA MoE
+backbones) and whisper's cross attention.
+
+Head ``h`` reads kv-head ``h // (n_heads // n_kv_heads)``, as the
+reference's ``(b, s, kh, group, hd)`` reshape does.  Logits are float32
+(the bf16 operands are exact in float32, so an upcast before the product
+is the reference's ``preferred_element_type=float32``), and the softmax is
+float32 cast back.  The cache is written in place: ``attend_decode``
+writes one row at ``min(cache_len, max_len - 1)``, the start JAX's
+``dynamic_update_slice`` clamps to, so a pooled length past the buffer
+overwrites its last row as the reference does instead of raising.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.models import common as cm
+
+NEG_INF = -2.3819763e38  # large negative, bf16-safe (matches gemma impls)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    use_bias: bool = False               # qwen1.5-style QKV bias
+    logit_softcap: float | None = None   # gemma2: 50.0
+    query_scale: float | None = None     # default 1/sqrt(head_dim)
+    use_rope: bool = True                # whisper uses absolute pos instead
+    # the reference shards the query sequence over its tensor-parallel axis
+    # when the heads do not divide it; carried, unused without a mesh
+    seq_shard: bool = False
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: AttnConfig, *, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.wq = cm.dense_init((d, h, hd), (0,), **kw)
+        self.wk = cm.dense_init((d, kh, hd), (0,), **kw)
+        self.wv = cm.dense_init((d, kh, hd), (0,), **kw)
+        self.wo = cm.dense_init((h, hd, d), (0, 1), **kw)
+        if cfg.use_bias:
+            self.bq = cm.zeros((h, hd), device=device, dtype=dtype)
+            self.bk = cm.zeros((kh, hd), device=device, dtype=dtype)
+            self.bv = cm.zeros((kh, hd), device=device, dtype=dtype)
+
+
+def specs(cfg: AttnConfig):
+    s = {
+        "wq": ("embed", "q_heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("q_heads", "head_dim", "embed"),
+    }
+    if cfg.use_bias:
+        s["bq"] = ("q_heads", "head_dim")
+        s["bk"] = ("kv_heads", "head_dim")
+        s["bv"] = ("kv_heads", "head_dim")
+    return s
+
+
+def _qkv(p, cfg: AttnConfig, x, positions):
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
+    if cfg.use_bias:
+        q = q + p.bq.to(x.dtype)
+        k = k + p.bk.to(x.dtype)
+        v = v + p.bv.to(x.dtype)
+    if cfg.use_rope:
+        q = cm.apply_rope(q, positions, cfg.rope_theta)
+        k = cm.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(cfg: AttnConfig, q, k, v, mask):
+    """q: (b, sq, h, hd); k/v: (b, skv, kh, hd); mask: (b|1, 1, sq, skv)."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    group = h // kh
+    scale = cfg.query_scale or (1.0 / math.sqrt(cfg.head_dim))
+    qg = q.reshape(b, sq, kh, group, hd) * scale
+    logits = torch.einsum("bqhgk,bshk->bhgqs", qg.float(), k.float())
+    if cfg.logit_softcap:
+        logits = cm.softcap(logits, cfg.logit_softcap)
+    # mask: (b|1, 1, sq, skv) -> broadcast over (kh, group)
+    logits = torch.where(mask[:, :, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqs,bshk->bqhgk", probs, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def _sdpa_chunked(cfg: AttnConfig, q, k, v, *, window: int | None,
+                  q_chunk: int, offset: int = 0, causal: bool = True):
+    """Query-chunked attention: the peak logits buffer is (b, kh, g,
+    q_chunk, skv) instead of O(sq·skv).  Each chunk sees the full K/V with
+    its own causal/window mask slice."""
+    b, sq, h, hd = q.shape
+    assert sq % q_chunk == 0, (sq, q_chunk)
+    outs = []
+    for i in range(sq // q_chunk):
+        qi = q[:, i * q_chunk:(i + 1) * q_chunk]
+        if causal:
+            mask = causal_mask(q_chunk, k.shape[1], window=window,
+                               offset=offset + i * q_chunk, device=q.device)
+        else:
+            mask = torch.ones((1, 1, q_chunk, k.shape[1]), dtype=torch.bool,
+                              device=q.device)
+        outs.append(_sdpa(cfg, qi, k, v, mask))
+    return torch.cat(outs, dim=1)
+
+
+def causal_mask(sq, skv, *, window: int | None = None, offset: int = 0,
+                device=None):
+    """(1, 1, sq, skv) bool. offset = absolute position of query 0 minus
+    key 0.  window = sliding-window size (gemma2 local layers): the key
+    position must be within [qpos - window + 1, qpos]."""
+    qpos = torch.arange(sq, device=device)[:, None] + offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m[None, None]
+
+
+def attend_train(p, cfg: AttnConfig, x, positions, *,
+                 window: int | None = None, q_chunk: int | None = None):
+    q, k, v = _qkv(p, cfg, x, positions)
+    sq = x.shape[1]
+    if q_chunk and sq > q_chunk:
+        out = _sdpa_chunked(cfg, q, k, v, window=window, q_chunk=q_chunk)
+    else:
+        out = _sdpa(cfg, q, k, v,
+                    causal_mask(sq, sq, window=window, device=x.device))
+    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
+
+
+# ------------------------------------------------------------------ KV cache
+def init_cache(cfg: AttnConfig, batch, max_len, dtype=torch.bfloat16,
+               device=None):
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_specs():
+    return {"k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+            "v": ("batch", "kv_seq", "kv_heads", "head_dim")}
+
+
+def attend_prefill(p, cfg: AttnConfig, x, positions, cache, *,
+                   window: int | None = None, q_chunk: int | None = None):
+    """Prefill seq into an (empty) cache, written in place; returns
+    (out, cache)."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    sq = x.shape[1]
+    if sq > cache["k"].shape[1]:
+        raise ValueError(f"a prompt of {sq} tokens does not fit a cache of "
+                         f"{cache['k'].shape[1]}")
+    cache["k"][:, :sq] = k.to(cache["k"].dtype)
+    cache["v"][:, :sq] = v.to(cache["v"].dtype)
+    if q_chunk and sq > q_chunk:
+        out = _sdpa_chunked(cfg, q, k, v, window=window, q_chunk=q_chunk)
+    else:
+        out = _sdpa(cfg, q, k, v,
+                    causal_mask(sq, sq, window=window, device=x.device))
+    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype)), cache
+
+
+def attend_decode(p, cfg: AttnConfig, x, cache, cache_len: int, *,
+                  window: int | None = None):
+    """One-token decode. x: (b, 1, d); cache_len: tokens already in the
+    cache (a host int).  Attention runs over the whole cache buffer with
+    positions > cache_len masked out, as the reference's static-shape
+    decode does.  Writes the cache in place; returns (out, cache)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), cache_len, dtype=torch.int32,
+                           device=x.device)
+    q, k, v = _qkv(p, cfg, x, positions)
+    ck, cv = cache["k"], cache["v"]
+    skv = ck.shape[1]
+    start = min(cache_len, skv - 1)       # JAX clamps the update's start
+    ck[:, start] = k[:, 0].to(ck.dtype)
+    cv[:, start] = v[:, 0].to(cv.dtype)
+    kpos = torch.arange(skv, device=x.device)[None, :]
+    valid = kpos <= cache_len
+    if window is not None:
+        valid &= kpos > cache_len - window
+    mask = valid[:, None, None, :].expand(b, 1, 1, skv)
+    out = _sdpa(cfg, q, ck.to(q.dtype), cv.to(q.dtype), mask)
+    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype)), cache
+
+
+# -------------------------------------------------------- cross attention
+def attend_cross(p, cfg: AttnConfig, x, kv_feats, kv_mask=None):
+    """Whisper decoder cross-attention. kv_feats: (b, s_enc, d)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", kv_feats, p.wk.to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", kv_feats, p.wv.to(x.dtype))
+    if cfg.use_bias:
+        q = q + p.bq.to(x.dtype)
+        k = k + p.bk.to(x.dtype)
+        v = v + p.bv.to(x.dtype)
+    b, sq, skv = x.shape[0], x.shape[1], kv_feats.shape[1]
+    if kv_mask is None:
+        mask = torch.ones((b, 1, sq, skv), dtype=torch.bool, device=x.device)
+    else:
+        mask = kv_mask[:, None, None, :].expand(b, 1, sq, skv)
+    out = _sdpa(cfg, q, k, v, mask)
+    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))

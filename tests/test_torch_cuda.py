@@ -426,3 +426,87 @@ def test_cuda_one_rank_nccl_mesh_fit_matches_eager(cuda, tmp_path):
                                        c, rtol=0, atol=tol)
     finally:
         dist.destroy_process_group()
+
+
+ZOO_ARCHS = ("dbrx-132b", "phi3.5-moe-42b-a6.6b", "internlm2-1.8b", "yi-6b",
+             "qwen1.5-4b", "gemma2-27b", "llava-next-mistral-7b")
+
+
+def _zoo(arch, compute_dtype):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              compute_dtype=compute_dtype)
+    return cfg, get_model(cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_cuda_zoo_matches_the_cpu(cuda, arch):
+    """The same seeded weights on the card and on the CPU: forward_train,
+    prefill and decode_step agree within 1e-5 of max|ref| at float32
+    compute (TF32 off; two float32 orders of the same sums).  MoE
+    configs' routing is a discrete choice on float32 probabilities, held
+    by the same bar."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    import copy
+    cfg, model = _zoo(arch, "float32")
+    cpu_params = model.init_params(0, device="cpu")
+    gpu_params = copy.deepcopy(cpu_params).to(cuda)   # Module.to moves
+    assert next(cpu_params.parameters()).device.type == "cpu"
+    g = np.random.default_rng(1)
+    toks = torch.from_numpy(g.integers(3, cfg.vocab_size, (2, 32)))
+    batch = {"tokens": toks}
+    if cfg.n_image_tokens:
+        batch["extra_embeds"] = torch.from_numpy(g.normal(
+            0, 1, (2, cfg.n_image_tokens, cfg.d_model)).astype(np.float32))
+    on = lambda b, dev: {k: v.to(dev) for k, v in b.items()}
+
+    def close(got, want):
+        assert got.device.type == "cuda"
+        got, want = got.float().cpu(), want.float()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+
+    close(model.forward_train(gpu_params, on(batch, cuda))[0],
+          model.forward_train(cpu_params, batch)[0])
+    pre = dict(batch, tokens=toks[:, :-1])
+    glog, gstate = model.prefill(gpu_params, on(pre, cuda), 40)
+    clog, cstate = model.prefill(cpu_params, pre, 40)
+    close(glog, clog)
+    assert gstate["k"].device.type == "cuda"
+    close(model.decode_step(gpu_params, toks[:, -1:].to(cuda), gstate)[0],
+          model.decode_step(cpu_params, toks[:, -1:], cstate)[0])
+
+
+@pytest.mark.cuda
+def test_cuda_engine_serves_the_cpu_tokens(cuda):
+    """Greedy serving of ragged requests past max_len (the clamp) on the
+    card and on the CPU: the same tokens for every request."""
+    import copy
+
+    from repro_torch.serve import EngineConfig, ServeEngine
+    cfg, model = _zoo("internlm2-1.8b", "float32")
+    cpu_params = model.init_params(0, device="cpu")
+    g = np.random.default_rng(2)
+    prompts = [g.integers(3, 255, 5 + 4 * (i % 3)).tolist()
+               for i in range(10)]
+    outs = []
+    for params in (cpu_params, copy.deepcopy(cpu_params).to(cuda)):
+        eng = ServeEngine(model, params, EngineConfig(n_slots=4, max_len=24))
+        reqs = [eng.submit(p, 4 + (5 * i) % 13, 0.0)
+                for i, p in enumerate(prompts)]
+        eng.run()
+        assert all(r.done for r in reqs) and eng.stats["peak_len"] > 24
+        assert eng.state["k"].device == next(params.parameters()).device
+        outs.append([r.out_tokens for r in reqs])
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_cuda_launch_serve_tokens_smoke(cuda, capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--workload", "tokens", "--smoke"]) == 0
+    assert "on cuda" in capsys.readouterr().out

@@ -346,12 +346,11 @@ def test_new_entry_points_default_to_cuda(monkeypatch):
                                            ("tokens", "item 15")])
 def test_launch_serve_unported_workloads_exit_nonzero(workload, item,
                                                       capsys):
-    """A workload not ported yet exits 2 naming its ROADMAP item.  The
-    fleet (item 11) is ported now: it runs and names no item."""
-    if workload == "fleet":
-        argv = ["--workload", workload, "--requests", "4", "--device", "cpu"]
-        assert tlaunch.main(argv) == 0
-        assert item not in capsys.readouterr().err
-        return
-    assert tlaunch.main(["--workload", workload]) == 2
-    assert item in capsys.readouterr().err
+    """No workload is left unported: the fleet (item 11) and token serving
+    (item 15) run and name no item, and no workload exits 2."""
+    argv = ["--workload", workload, "--requests", "4", "--device", "cpu"]
+    if workload == "tokens":
+        argv.append("--smoke")
+    assert tlaunch.main(argv) == 0
+    assert item not in capsys.readouterr().err
+    assert not hasattr(tlaunch, "NOT_PORTED")

@@ -42,7 +42,9 @@ def test_importing_the_port_leaves_jax_unloaded():
             " 'repro_torch.serve', 'repro_torch.obs',"
             " 'repro_torch.launch.serve', 'repro_torch.runtime',"
             " 'repro_torch.train', 'repro_torch.serve.fleet',"
-            " 'repro_torch.core.distributed', 'repro_torch.launch.mesh'):\n"
+            " 'repro_torch.core.distributed', 'repro_torch.launch.mesh',"
+            " 'repro_torch.configs', 'repro_torch.models',"
+            " 'repro_torch.serve.engine', 'repro_torch.core.scaling_laws'):\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"

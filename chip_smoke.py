@@ -8,6 +8,8 @@ Run from the repo root on a machine with one CUDA card and nvcc.  Builds the
 kernels from ``src/repro_torch/kernels/csrc``, then:
 
   phase 0  card, build time, device copy bandwidth (1 GiB copy, median of 10)
+           and launch.perfgate's triad; every kernel row's roofline_frac
+           against the spec rate and against the triad
   phase 1  each kernel against its plain version at B=64, n=2^16+37,
            B=67, n=77 and B=4, n=1 (the fleet's step-time updates), degrees
            1, 3, 7, 20: f32, bf16, zero weights (true count vs Σw),
@@ -82,6 +84,22 @@ kernels from ``src/repro_torch/kernels/csrc``, then:
            n_layers cut to 2: prefill/decode consistency, and gemma2's
            6144-token prefill (its 4096 window binds) chunked against
            unchunked at float32
+  phase 15 the zoo's training path (no fit kernel runs): (a)
+           internlm2-1.8b at its published widths with n_layers cut to 2,
+           float32 compute: one train step on the card against the CPU,
+           remat none against full, 2 microbatches against 1; (b) the
+           reference launcher's traffic through repro_torch.launch.train
+           (full width, 8 x 128 tokens, 20 steps: the loss falls, the
+           loss monitor planned on the card), and a checkpoint round trip
+           on (a)'s model (save at 3, restore into another seed's state,
+           replay 3-5 at rtol 1e-5); (c) full width, remat full, 8 x 1024
+           tokens a step: ms per step and tokens/s (CUDA events), share of
+           the bf16 peak (roofline.model_flops), peak memory, executed
+           FLOPs (roofline.analyze), a profiled window (busy share, AdamW
+           share, top kernels) and the compute cast's time; (d)
+           phi3.5-moe at published widths cut to 2 layers: loss and
+           gradients, router gradient and aux loss non-zero, 2
+           microbatches against 1
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure, or when
@@ -176,6 +194,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import moments as K
     from repro_torch.kernels import tune
+    from repro_torch.launch import perfgate, roofline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -200,6 +219,13 @@ def main() -> int:
     copy_bw = 2 * src.numel() * 4 / (copy_ms * 1e-3)   # read + write
     log(f"phase0 copy 1 GiB: {copy_ms:.4f} ms = {copy_bw / 1e9:.1f} GB/s "
         "(read + write)")
+    triad = perfgate.measure_bandwidth(n_mb=256, device=dev)
+    hbm_spec = perfgate.Bandwidth(gbps=roofline.HBM_BW / 1e9,
+                                  source="model", backend="cuda")
+    log(f"phase0 perfgate triad (3 x 256 MiB, min of 5): "
+        f"{triad.gbps:.1f} GB/s ({triad.gbps / hbm_spec.gbps:.3f} of the "
+        f"{hbm_spec.gbps:.0f} GB/s spec, {triad.bytes_per_s / copy_bw:.3f} of "
+        "the copy)")
     del src, dst
     torch.cuda.empty_cache()
 
@@ -315,7 +341,7 @@ def main() -> int:
         ms=cuda_ms(torch, lambda: K.moments_packed(x2, y2, degree=3)),
         plain_ms=cuda_ms(torch, lambda: K.moments_block_plain(
             x2, y2, None, 3)),
-        bytes=2 * x2.numel() * 4 + B2 * 25 * 4,
+        bytes=2 * x2.numel() * 4 + B2 * 25 * 4, points=x2.numel(),
         flops=(6 * 3 + 6) * x2.numel(), shape=f"B={B2} n={N2} deg 3 f32")
     cf = c2.contiguous()
     got = K.fused_report(x2, y2, None, cf)
@@ -330,6 +356,7 @@ def main() -> int:
         plain_ms=cuda_ms(torch, lambda: K.fused_report_plain(
             x2, y2, None, cf)),
         bytes=2 * x2.numel() * 4 + B2 * 4 * 4 + B2 * 7 * 4,
+        points=x2.numel(),
         flops=(2 * 3 + 15) * x2.numel(), shape=f"B={B2} n={N2} deg 3 f32")
     fit2_ms = statistics.median(
         _host_ms(torch, lambda: api.fit(x2, y2, spec)) for _ in range(5))
@@ -385,7 +412,7 @@ def main() -> int:
         ms=cuda_ms(torch, lambda: K.moments_plain(xt, yt, degree=7)),
         plain_ms=cuda_ms(torch, lambda: K.moments_block_plain(
             xt, yt, None, 7), reps=5),
-        bytes=2 * N3 * 4 + 81 * 4, flops=(6 * 7 + 6) * N3,
+        bytes=2 * N3 * 4 + 81 * 4, flops=(6 * 7 + 6) * N3, points=N3,
         shape="B=1 n=2^28 deg 7 f32")
     rows["moments_plain"]["kahan_ms"] = cuda_ms(
         torch, lambda: K.moments_plain(xt, yt, degree=7, compensated=True))
@@ -419,6 +446,7 @@ def main() -> int:
     launches12, async_out = phase12(ctx)
     launches13, mesh_out = phase13(ctx)
     launches14, zoo_out = phase14(ctx)
+    launches15, train_out = phase15(ctx)
 
     # ----------------------------------------------------------------- report
     replaces = {   # the TPU kernel bodies in the JAX reference
@@ -437,7 +465,7 @@ def main() -> int:
                                           launches6, launches7, launches8,
                                           launches9, launches10, launches11,
                                           launches12, launches13,
-                                          launches14))
+                                          launches14, launches15))
                 for k in launches2}
     kernels = []
     for name in ("moments_plain", "moments_packed", "moments_packed_ring",
@@ -458,6 +486,11 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "shape": r["shape"],
+            # 2 float32 streams (x, y) per point through perfgate
+            "roofline_frac": perfgate.roofline_fraction(
+                r["points"] / r["ms"] / 1e3, hbm_spec),
+            "roofline_frac_triad": perfgate.roofline_fraction(
+                r["points"] / r["ms"] / 1e3, triad),
             "gb_per_s": r["bytes"] / (r["ms"] * 1e-3) / 1e9,
             "of_copy_rate": r["bytes"] / (r["ms"] * 1e-3) / copy_bw,
             "copy_bound_ms": r["bytes"] / copy_bw * 1e3,
@@ -474,7 +507,8 @@ def main() -> int:
         f"phase10 serving {json.dumps(serve_out)}; phase11 fleet "
         f"{json.dumps(fleet_out)}; phase12 async LSPIA "
         f"{json.dumps(async_out)}; phase13 mesh {json.dumps(mesh_out)}; "
-        f"phase14 zoo {json.dumps(zoo_out)}; copy "
+        f"phase14 zoo {json.dumps(zoo_out)}; phase15 train "
+        f"{json.dumps(train_out)}; copy "
         f"{copy_bw / 1e9:.1f} GB/s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -582,6 +616,7 @@ def phase5(c):
                    x, y, None, 3)),
                packed_ms_same_run=statistics.median([p1, p2]),
                bytes=2 * x.numel() * 4 + B_MAIN * 25 * 4,
+               points=x.numel(),
                flops=(6 * 3 + 6) * x.numel(), block_n=bn, nbuf=2,
                shape=f"B={B_MAIN} n={N_MAIN} deg 3 f32")
     log(f"phase5 ring block_n {bn} nbuf 2: {r1:.4f} / {r2:.4f} ms; "
@@ -2383,6 +2418,402 @@ def phase14(c):
             f"the zoo path launched a fit kernel: {launches}")
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase14 {out['wall_s']:.1f} s; fit-kernel launches {launches}")
+    return launches, out
+
+
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_SEED = 15
+TRAIN_CUT_LAYERS = 2       # 15a, 15d: published widths, depth cut
+TRAIN_MOE = "phi3.5-moe-42b-a6.6b"
+TRAIN_TOL_F32 = 1e-4       # float32 sums of up to 8192 terms in other orders
+TRAIN_TOL_BF16 = 5e-2      # bf16: max|Δ| / max|ref| (the reference's bar)
+TRAIN_SMALL = (2, 64)      # 15a's batch × length
+TRAIN_RESUME = (8, 128)    # 15b's round trip: the launcher's defaults
+TRAIN_WINDOW = (8, 1024)   # 15c: global batch × length
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED = 2, 10, 3
+TRAIN_MOE_BATCH = (2, 256)  # 15d: one MoE dispatch group per row
+
+
+def _train_batches(c, cfg, shape, n, seed=TRAIN_SEED):
+    """``n`` batches of the data pipeline on the context's device."""
+    from repro_torch.data import DataConfig, TokenPipeline
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=shape[1], global_batch=shape[0],
+                                    seed=seed), device=c["dev"])
+    return [pipe.next() for _ in range(n)]
+
+
+def _train_copy(tf, state, device):
+    """The train state on ``device`` (moments and counters copied too)."""
+    return {"params": _zoo_copy(tf, state["params"], device),
+            "opt": {"mu": {k: v.to(device, copy=True)
+                           for k, v in state["opt"]["mu"].items()},
+                    "nu": {k: v.to(device, copy=True)
+                           for k, v in state["opt"]["nu"].items()},
+                    "count": state["opt"]["count"].to(device, copy=True)},
+            "step": state["step"].to(device, copy=True)}
+
+
+def _train_close(c, tag, got, want, lr):
+    """One step of two runs held together: loss and grad_norm within
+    ``TRAIN_TOL_F32`` relative; a sample of parameters (the embedding's
+    first rows, layer 0's query, the last layer's down projection) within
+    2·lr + TOL·max|p|, since Adam's first step moves an element whose
+    gradient is near 0 by ±lr·g/(|g| + eps) and two float32 orders of the
+    same sum can give that gradient either sign; the same sample of mu
+    (0.1 · the clipped gradient) within TOL·max|mu|.  Returns the worst
+    relative errors."""
+    torch = c["torch"]
+    (sa, ma), (sb, mb) = got, want
+    out = {k: _zoo_rel(torch, ma[k].cpu(), mb[k].cpu())
+           for k in ("loss", "grad_norm")}
+    pa = dict(sa["params"].named_parameters())
+    pb = dict(sb["params"].named_parameters())
+    last = sa["params"].cfg.n_layers - 1
+    names = ("embed.table", "layers.0.attn.wq",
+             f"layers.{last}.mlp.w_down")
+    worst_p = worst_mu = 0.0
+    for n in names:
+        a, b = pa[n].detach().cpu()[:64], pb[n].detach().cpu()[:64]
+        err = (a - b).abs().max().item()
+        bar = 2 * lr + TRAIN_TOL_F32 * b.abs().max().item()
+        require(err <= bar, f"{tag} {n}: |Δp| {err:.3e} > {bar:.3e}")
+        worst_p = max(worst_p, err / bar)
+        mu_a, mu_b = sa["opt"]["mu"][n].cpu(), sb["opt"]["mu"][n].cpu()
+        worst_mu = max(worst_mu, _zoo_rel(torch, mu_a[:64], mu_b[:64]))
+    out.update(params_of_bar=worst_p, mu=worst_mu)
+    require(max(out["loss"], out["grad_norm"], out["mu"]) <= TRAIN_TOL_F32,
+            f"{tag}: {out}")
+    return out
+
+
+def _train_correct(c):
+    """15a: internlm2-1.8b at its published widths, 2 layers, float32
+    compute: one train step on the card against the same step on the CPU
+    (weights drawn on the card and copied), remat "none" against "full"
+    and 2 microbatches against 1 on the card."""
+    import copy
+    import dataclasses
+
+    torch, dev = c["torch"], c["dev"]
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CUT_LAYERS,
+                              compute_dtype="float32")
+    (batch,) = _train_batches(c, cfg, TRAIN_SMALL, 1)
+    tc = TrainConfig()
+    model = get_model(cfg)
+    start = init_train_state(model, torch.Generator(device=dev).manual_seed(
+        TRAIN_SEED), device=dev)
+    runs = {}
+    for name, remat, mb in (("full", "full", 1), ("none", "none", 1),
+                            ("full_mb2", "full", 2)):
+        m = get_model(dataclasses.replace(cfg, remat=remat))
+        st = copy.deepcopy(start)
+        runs[name] = make_train_step(m, dataclasses.replace(
+            tc, microbatches=mb))(st, batch)
+    cpu = _train_copy(tf, start, "cpu")
+    runs["cpu"] = make_train_step(model, tc)(
+        cpu, {k: v.cpu() for k, v in batch.items()})
+    c["sync"]()
+    lr = float(runs["full"][1]["lr"])
+    a = {"n_layers": f"{TRAIN_CUT_LAYERS} of "
+                     f"{configs.get_config(TRAIN_ARCH).n_layers}",
+         "params": sum(p.numel() for p in start["params"].parameters()),
+         "loss": float(runs["full"][1]["loss"]), "lr": lr,
+         "card_vs_cpu": _train_close(c, "15a card vs CPU", runs["full"],
+                                     runs["cpu"], lr),
+         "remat_none_vs_full": _train_close(c, "15a remat", runs["none"],
+                                            runs["full"], lr),
+         "microbatches_2_vs_1": _train_close(c, "15a microbatches",
+                                             runs["full_mb2"], runs["full"],
+                                             lr)}
+    log(f"phase15a {json.dumps(a)}")
+    return a
+
+
+def _train_resume(c):
+    """15b's checkpoint round trip on 15a's 2-layer model at the config's
+    bf16 compute and the launcher's batch: save at step 3, go on to 6,
+    restore into a state drawn from another seed, replay steps 3-5."""
+    import dataclasses
+
+    torch, dev = c["torch"], c["dev"]
+    from repro_torch import checkpoint, configs
+    from repro_torch.models import get_model
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CUT_LAYERS)
+    model = get_model(cfg)
+    step_fn = make_train_step(model, TrainConfig())
+    batches = _train_batches(c, cfg, TRAIN_RESUME, 6)
+    state = init_train_state(model, TRAIN_SEED, device=dev)
+    with tempfile.TemporaryDirectory() as ckpt:
+        losses = []
+        for step, batch in enumerate(batches):
+            if step == 3:
+                t0 = time.perf_counter()
+                checkpoint.save(ckpt, 3, state)
+                save_s = time.perf_counter() - t0
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+        del state
+        _zoo_free(c)
+        t0 = time.perf_counter()
+        other = init_train_state(model, TRAIN_SEED + 1, device=dev)
+        state = checkpoint.restore(ckpt, checkpoint.latest_step(ckpt),
+                                   other)
+        restore_s = time.perf_counter() - t0
+        require(int(state["step"]) == 3, "15b restored step")
+        replay = []
+        for batch in batches[3:]:
+            state, m = step_fn(state, batch)
+            replay.append(float(m["loss"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(replay, losses[3:]))
+    require(rel <= 1e-5, f"15b replay {replay} vs {losses[3:]} rel {rel:.3e}")
+    out = {"losses": losses, "replay": replay, "replay_max_rel": rel,
+           "bit_equal": replay == losses[3:], "save_s": save_s,
+           "restore_s": restore_s}
+    log(f"phase15b round trip {json.dumps(out)}")
+    return out
+
+
+def _kernel_kind(name):
+    """A kernel's kind, read from its name: cuBLAS's float32 SIMT GEMMs
+    (``ffma``), its other GEMMs (the bf16 tensor-core ones), the
+    ``foreach`` kernels (AdamW), softmax, reductions, casts, other
+    elementwise and copy kernels."""
+    n = name.lower()
+    if "gemm" in n or "nvjet" in n:
+        return "gemm_f32_ffma" if "ffma" in n else "gemm_tensor_core"
+    for kind, keys in (("adamw_foreach", ("multi_tensor_apply",)),
+                       ("softmax", ("softmax",)),
+                       ("reduction", ("reduce_kernel", "reduce")),
+                       ("cast_to_bf16", ("bfloat16_copy",)),
+                       ("elementwise", ("elementwise", "copy", "index",
+                                        "gather", "scatter", "cat"))):
+        if any(k in n for k in keys):
+            return kind
+    return "other"
+
+
+def _train_busy(c, step_fn, state, batches):
+    """``batches`` steps under ``torch.profiler``: device ms per step, the
+    top kernels, and the device time by kind of kernel (``foreach`` is
+    AdamW's)."""
+    from torch.profiler import ProfilerActivity, profile
+    c["sync"]()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            state, _ = step_fn(state, batch)
+        c["sync"]()
+    dev_us, copy_us, by_name, n_kernels = _trace_device_us(prof)
+    require(dev_us > 0, "15c profiler saw no device time")
+    n = len(batches)
+    kinds: dict[str, float] = {}
+    for k, t in by_name.items():
+        kinds[_kernel_kind(k)] = kinds.get(_kernel_kind(k), 0.0) + t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return state, {
+        "device_ms_per_step": dev_us / n / 1e3,
+        "copy_ms_per_step": copy_us / n / 1e3,
+        "kernels_per_step": n_kernels / n,
+        "adamw_foreach_ms_per_step": kinds.get("adamw_foreach", 0.0)
+        / n / 1e3,
+        "kinds_ms_per_step": {k: t / n / 1e3 for k, t in
+                              sorted(kinds.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_step": {k[:200]: t / n / 1e3 for k, t in top}}
+
+
+def _train_window(c):
+    """15c: internlm2-1.8b at full width, remat "full", 8 × 1024 tokens a
+    step: 2 warm-up steps, 10 timed (CUDA events), one through
+    ``roofline.analyze``, 3 profiled; the compute cast's time alone."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline
+    from repro_torch.models import get_model
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    torch, dev = c["torch"], c["dev"]
+    cfg = configs.get_config(TRAIN_ARCH)
+    require(cfg.remat == "full", f"15c remat {cfg.remat}")
+    model = get_model(cfg)
+    step_fn = make_train_step(model, TrainConfig())
+    b, s = TRAIN_WINDOW
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED + 1 + TRAIN_PROFILED
+    batches = _train_batches(c, cfg, TRAIN_WINDOW, n_steps)
+    state = init_train_state(model, TRAIN_SEED, device=dev)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    for batch in batches[:TRAIN_WARMUP]:
+        state, _ = step_fn(state, batch)
+    c["sync"]()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ms, losses = [], []
+    t0 = time.perf_counter()
+    for batch in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, m = step_fn(state, batch)
+        ev[1].record()
+        ms.append(ev)
+        losses.append(m["loss"])
+    c["sync"]()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    ms = [e[0].elapsed_time(e[1]) for e in ms]
+    losses = [float(v) for v in losses]
+    require(all(np.isfinite(losses)), f"15c losses {losses}")
+    step_ms = statistics.median(ms)
+    shape = ShapeConfig("train_8x1024", s, b, "train")
+    useful = roofline.model_flops(cfg, shape, b * s)
+    # the float32 state the step must read and write: params, grads, mu,
+    # nu read, params, mu, nu written
+    state_bytes = 7 * 4 * n_params
+    k = TRAIN_WARMUP + TRAIN_TIMED
+    box = {}
+
+    def one_step():
+        box["state"], _ = step_fn(state, batches[k])
+
+    roof = roofline.analyze(one_step, bytes_accessed=state_bytes, device=dev)
+    state = box.pop("state")
+    state, busy = _train_busy(c, step_fn, state, batches[k + 1:])
+    # the compute cast alone: every float32 master to bf16, once
+    masters = [p for p in state["params"].parameters()]
+    cast_ms = c["cuda_ms"](lambda: [p.to(torch.bfloat16) for p in masters],
+                           reps=5)
+    o = {"params": n_params, "tokens_per_step": b * s,
+         "ms_per_step_median": step_ms, "ms_per_step_min": min(ms),
+         "ms_per_step_max": max(ms), "tok_per_s": b * s / (step_ms * 1e-3),
+         "tok_per_s_host_clock": TRAIN_TIMED * b * s / wall,
+         "peak_memory_gb": peak / 1e9,
+         "model_flops": useful,
+         "bf16_peak_share": useful / (step_ms * 1e-3) / roofline.PEAK_FLOPS,
+         "bound_ms": useful / roofline.PEAK_FLOPS * 1e3,
+         "executed_flops": roof.flops,
+         "executed_vs_6nd": roof.flops / useful,
+         "analyze_peak_memory_gb": roof.peak_memory / 1e9,
+         "optimizer_state_bytes_ms": roof.memory_s * 1e3,
+         "losses": losses,
+         "device_busy_share": busy["device_ms_per_step"] / step_ms,
+         "adamw_share_of_device": busy["adamw_foreach_ms_per_step"]
+         / busy["device_ms_per_step"],
+         "cast_ms": cast_ms, **busy}
+    log(f"phase15c {json.dumps(o)}")
+    return o
+
+
+def _train_moe(c):
+    """15d: phi3.5-moe at its published widths, 2 layers, the config's
+    bf16: one loss and its gradients (no optimizer state); the loss
+    finite, the router's gradient and the aux loss non-zero; 2
+    microbatches against 1 with the aux loss off (the Switch aux loss is
+    a product of two batch means, so the halves' mean of it is not the
+    whole batch's) within the bf16 bar: bf16 products in another order can
+    move a near-tied router choice."""
+    import dataclasses
+
+    torch, dev = c["torch"], c["dev"]
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.train_step import _loss_fn
+    cfg = dataclasses.replace(configs.get_config(TRAIN_MOE),
+                              n_layers=TRAIN_CUT_LAYERS)
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(
+        TRAIN_SEED), device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    names, masters = zip(*params.named_parameters())
+    sample = ("layers.0.moe.router", "layers.1.moe.w_gate", "embed.table")
+    (batch,) = _train_batches(c, cfg, TRAIN_MOE_BATCH, 1)
+
+    def grads(tc, part):
+        leaves = [p.detach().requires_grad_(True) for p in masters]
+        loss, m = _loss_fn(model, tc, dict(zip(names, leaves)), part)
+        g = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        return (loss.detach(), {k: v.detach() for k, v in m.items()},
+                {n: g[n].float() for n in sample})
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    loss, m, g = grads(TrainConfig(), batch)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    d = {"n_layers": f"{TRAIN_CUT_LAYERS} of "
+                     f"{configs.get_config(TRAIN_MOE).n_layers}",
+         "params": n_params, "loss": float(loss), "aux": float(m["aux"]),
+         "router_grad_max": g[sample[0]].abs().max().item(),
+         "peak_memory_gb": peak / 1e9}
+    require(np.isfinite(d["loss"]) and d["aux"] > 0
+            and d["router_grad_max"] > 0, f"15d {d}")
+    tc0 = TrainConfig(aux_loss_weight=0.0)
+    one, _, g1 = grads(tc0, batch)
+    half = TRAIN_MOE_BATCH[0] // 2
+    la, _, ga = grads(tc0, {k: v[:half] for k, v in batch.items()})
+    lb, _, gb = grads(tc0, {k: v[half:] for k, v in batch.items()})
+    d["mb2_vs_1_loss"] = _zoo_rel(torch, (la + lb) / 2, one)
+    for n in sample:
+        d[f"mb2_vs_1_{n}"] = _zoo_rel(torch, (ga[n] + gb[n]) / 2, g1[n])
+    worst = max(v for k, v in d.items() if k.startswith("mb2_vs_1"))
+    require(worst <= TRAIN_TOL_BF16, f"15d microbatches {d}")
+    log(f"phase15d {TRAIN_MOE} (n_layers cut to {TRAIN_CUT_LAYERS}; "
+        f"published widths): {json.dumps(d)}")
+    return d
+
+
+def phase15(c):
+    """The zoo's training path (no fit kernel runs here)."""
+    torch, dev, K = c["torch"], c["dev"], c["K"]
+    from repro_torch.core import streaming
+    from repro_torch.launch import train as train_lib
+    K.reset_launch_counts()
+    out = {}
+    t0 = time.perf_counter()
+    out["15a"] = _train_correct(c)
+    _zoo_free(c)
+    out["15b_round_trip"] = _train_resume(c)
+    _zoo_free(c)
+
+    # 15b: the reference launcher's traffic, through the launcher
+    run = train_lib.run(["--arch", TRAIN_ARCH, "--steps", "20",
+                         "--log-every", "5", "--device", str(dev)])
+    mon, state = run.pop("monitor"), run.pop("state")
+    losses = [run["losses"][s] for s in sorted(run["losses"])]
+    require(len(losses) == 20 and all(np.isfinite(losses)), "15b losses")
+    require(losses[-1] < losses[0], f"15b loss did not fall: {losses}")
+    require(all(p.device.type == dev.type
+                for p in state["params"].parameters()), "15b state device")
+    plan = streaming.update_plan(mon._state, (1,), torch.float32)
+    # one point per step: below the kernels' crossover on the card (a
+    # CPU rehearsal plans the reference path for its backend instead)
+    require(mon._state.device.type == dev.type
+            and plan.path == c["engine"].REFERENCE
+            and (dev.type != "cuda" or "below kernel crossover"
+                 in plan.reason),
+            f"15b monitor plan {plan.describe()} on {mon._state.device}")
+    out["15b"] = {"losses": losses, "wall_s": run["wall_s"],
+                  "monitor_plan": plan.describe(),
+                  "monitor_slope": mon.slope_at(19)}
+    log(f"phase15b {json.dumps(out['15b'])}")
+    del mon, state, run
+    _zoo_free(c)
+
+    out["15c"] = _train_window(c)
+    _zoo_free(c)
+    out["15d"] = _train_moe(c)
+    _zoo_free(c)
+    launches = K.launch_counts()
+    require(not any(launches.values()),
+            f"the training path launched a fit kernel: {launches}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase15 {out['wall_s']:.1f} s; fit-kernel launches {launches}")
     return launches, out
 
 

@@ -6,7 +6,9 @@ The reference's ``Moments``, ``Domain``, ``Polynomial``, ``FitSpec``,
 the reference's state through it so that both packages solve the same
 thing, and start both from the same stream state.  ``model_params`` and
 ``decode_state`` carry a zoo model's parameter tree and KV cache the same
-way, so both packages run one model from one cache.
+way, so both packages run one model from one cache, and ``train_state``
+carries a train state (parameters, AdamW moments, counters), so both
+packages take a train step from the same numbers.
 """
 from __future__ import annotations
 
@@ -162,3 +164,22 @@ def decode_state(ref_state, cfg, device=None) -> dict:
 
     return {"k": stack("k"), "v": stack("v"),
             "len": int(np.asarray(ref_state["len"]))}
+
+
+def train_state(ref_state, cfg, device=None) -> dict:
+    """A reference train state (``params``, ``opt`` with ``mu``/``nu``
+    trees and ``count``, ``step``) as the port's: the parameters as the
+    model (``model_params``), ``mu``/``nu`` by the same mapping as dicts
+    keyed by its parameter names, ``count``/``step`` int32 scalars."""
+    dev = resolve_device(device)
+    opt = ref_state["opt"]
+
+    def moments(tree):
+        return {n: p.detach() for n, p in
+                model_params(tree, cfg, device=dev).named_parameters()}
+
+    return {"params": model_params(ref_state["params"], cfg, device=dev),
+            "opt": {"mu": moments(opt["mu"]), "nu": moments(opt["nu"]),
+                    "count": tensor(np.asarray(opt["count"], np.int32),
+                                    dev)},
+            "step": tensor(np.asarray(ref_state["step"], np.int32), dev)}

@@ -16,6 +16,7 @@ on).
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 from torch import nn
@@ -148,6 +149,25 @@ def apply_rope(x, positions, theta=10000.0):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- views
+def param_view(module: nn.Module, tensors):
+    """``module``'s tree with each parameter replaced by ``tensors[name]``
+    (``named_parameters`` names), as plain attributes, with
+    ``nn.ModuleList``s as lists: what the apply functions read.  Nothing is
+    copied, so tensors inside autograd (a cast of a master parameter)
+    stay inside it, which a module's own ``nn.Parameter`` cannot."""
+    def build(mod, prefix):
+        view = types.SimpleNamespace(**{
+            n: tensors[prefix + n]
+            for n, _ in mod.named_parameters(recurse=False)})
+        for n, child in mod.named_children():
+            setattr(view, n, build(child, f"{prefix}{n}."))
+        if isinstance(mod, nn.ModuleList):
+            return [getattr(view, str(i)) for i in range(len(mod))]
+        return view
+    return build(module, "")
 
 
 # ---------------------------------------------------------------- spec trees

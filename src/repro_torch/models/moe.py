@@ -15,7 +15,10 @@ the reference's ``lax.top_k`` breaks those to the lower expert index, and
 composite key ``floor(16·p)·E + (E - 1 - e)``: distinct per expert, exact
 in float32 (at most 16·E + E - 1), and ordered as ``lax.top_k`` orders
 (descending, the lower index first among equals).  The gates are the
-exact probabilities gathered at the selected experts.
+exact probabilities gathered at the selected experts, so under autograd
+the router's gradient comes through them and the aux loss; the selection
+(the floor, the top-k indices, the one-hots and the capacity mask)
+carries none.
 
 An aux load-balancing loss (Switch §2.2, per group then averaged) is
 returned alongside.

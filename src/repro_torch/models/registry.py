@@ -4,6 +4,7 @@
   model = get_model(cfg)
   model.init_params(seed_or_generator, device=...) / abstract_params /
       param_specs / param_shapes / compute_params
+  model.param_view({name: tensor})          the tree forward_train reads
   model.forward_train(params, batch)        batch dict (family-specific keys)
   model.prefill(params, batch, max_len)
   model.decode_step(params, token, state)
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import common, transformer
 
 NOT_PORTED = {
     "ssm": "rwkv6 (models/rwkv6.py, rwkv6_model.py)",
@@ -40,6 +41,7 @@ class ModelAPI:
     param_specs: Callable         # () -> logical-axes tree (reference layout)
     param_shapes: Callable        # (params) -> shapes tree (reference layout)
     compute_params: Callable      # (params) -> compute-dtype copy
+    param_view: Callable          # ({param name: tensor}) -> params tree
     forward_train: Callable       # (params, batch) -> (logits, aux)
     prefill: Callable             # (params, batch, max_len) -> (logits, state)
     decode_step: Callable         # (params, token, state) -> (logits, state)
@@ -61,6 +63,10 @@ def _tok_specs(shape: ShapeConfig, seq):
 
 def _decoder_like(cfg: ModelConfig, mod) -> ModelAPI:
     n_img = cfg.n_image_tokens
+    skeleton = mod.abstract_params(cfg)
+
+    def param_view(tensors):
+        return common.param_view(skeleton, tensors)
 
     def init_params(generator=None, dtype=None, device=None):
         return mod.init_params(cfg, generator, dtype,
@@ -108,6 +114,7 @@ def _decoder_like(cfg: ModelConfig, mod) -> ModelAPI:
         abstract_params=lambda: mod.abstract_params(cfg),
         param_specs=lambda: mod.param_specs(cfg),
         param_shapes=mod.param_shapes, compute_params=mod.compute_copy,
+        param_view=param_view,
         forward_train=forward_train, prefill=prefill, decode_step=decode_step,
         init_decode_state=init_decode_state,
         decode_state_specs=lambda: mod.decode_state_specs(cfg),

@@ -1,7 +1,8 @@
 """Decoder-only transformer LM (port of ``repro.models.transformer``):
 dense (internlm2/yi/qwen1.5/mistral-llava), gemma2 (local/global + softcaps
-+ sandwich norms), and MoE (dbrx/phi3.5-moe).  Inference only: no remat,
-no autograd.
++ sandwich norms), and MoE (dbrx/phi3.5-moe).  ``forward_train`` runs
+under autograd, with the reference's remat choice per layer group
+(``cfg.remat``); ``prefill`` and ``decode_step`` run without it.
 
 The reference scans stacked layer trees; here the layers are an
 ``nn.ModuleList`` in layer order, and layer ``i`` runs with the window of
@@ -11,7 +12,7 @@ of ``g`` stacks with a leading ``n_groups`` axis), so shapes and logical
 axes can be held against it.
 
 Three execution paths share one layer body:
-  forward_train : tokens -> logits (full causal)
+  forward_train : tokens -> logits (full causal), differentiable
   prefill       : tokens -> logits of the last position, KV cache
   decode_step   : 1 token + cache -> logits, cache (written in place)
 VLM (llava) is this model with stub patch embeddings prepended to the
@@ -19,15 +20,20 @@ token embeddings.
 
 Parameters are float32 masters and compute runs in ``cfg.compute_dtype``;
 ``compute_copy`` makes the compute-dtype copy of the weights the reference
-casts at every product once, so a decode step reads bf16 weights.  The KV
-cache is bf16 even when compute is float32, as in the reference.
+casts at every product once, so a decode step reads bf16 weights.  The
+train step casts inside autograd instead and passes the cast tensors as
+a ``common.param_view`` of the model, which every function here reads as
+it reads the module.  The KV cache is bf16 even when compute is float32,
+as in the reference.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -253,16 +259,59 @@ def _q_chunk(s):
 
 
 # ------------------------------------------------------------------- train
-@torch.no_grad()
+def _saves_dots(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of products with no batch dimension, recompute the rest.
+    ``torch.einsum`` lowers a contraction with no batch dimension to a
+    ``bmm`` of batch 1, so that is what is kept beside ``mm``/``addmm``;
+    attention's and the experts' products (batched) are recomputed."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``fn(h)`` under the config's activation checkpointing: "none" keeps
+    every activation, "full" keeps the group's input and recomputes the
+    rest in the backward pass, "dots" keeps the products with no batch
+    dimension as well."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _saves_dots))
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
 def forward_train(params, cfg: ModelConfig, tokens, extra_embeds=None):
     """tokens: (B, S_text) int; extra_embeds: (B, N, d) prepended (llava).
-    Returns (logits: (B, S_total, vocab), aux_loss: scalar)."""
+    Returns (logits: (B, S_total, vocab), aux_loss: scalar).  Layers run
+    in groups of ``group_size(cfg)`` (gemma2: a local and a global layer),
+    each group under ``_maybe_remat`` when autograd records (without it
+    there is nothing to keep)."""
     h = _embed_in(params, cfg, tokens, extra_embeds)
     b, s, _ = h.shape
     positions = _positions(b, s, h.device)
+    windows = _group_windows(cfg)
+    layers = list(params.layers)
+    records = torch.is_grad_enabled() and h.requires_grad
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for p, w in zip(params.layers, _layer_windows(cfg)):
-        h, a = _ffn(cfg, p, _attn_train(cfg, p, h, positions, w))
+
+    def group_body(group, h):
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for p, w in zip(group, windows):
+            h, a = _ffn(cfg, p, _attn_train(cfg, p, h, positions, w))
+            aux = aux + a
+        return h, aux
+
+    for i in range(0, len(layers), len(windows)):
+        body = functools.partial(group_body, layers[i:i + len(windows)])
+        h, a = (_maybe_remat(cfg, body) if records else body)(h)
         aux = aux + a
     h = _norm(cfg, params.final_norm, h)
     logits = cm.embed_logits(params.embed, h, softcap=cfg.final_softcap)

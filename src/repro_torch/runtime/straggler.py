@@ -9,10 +9,13 @@ shrink the slow host's shard (work-stealing) without a restart.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import numpy as np
 
-from repro_torch.train.monitors import StepTimeMonitor
+if TYPE_CHECKING:   # an annotation only: a runtime import would close the
+    # cycle train.monitors -> core -> core.distributed -> runtime -> here
+    from repro_torch.train.monitors import StepTimeMonitor
 
 
 @dataclasses.dataclass(frozen=True)

@@ -510,3 +510,70 @@ def test_cuda_launch_serve_tokens_smoke(cuda, capsys):
     from repro_torch.launch import serve
     assert serve.main(["--workload", "tokens", "--smoke"]) == 0
     assert "on cuda" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_cuda_train_step_matches_the_cpu(cuda, arch):
+    """One train step from the same state on the card and on the CPU at
+    float32 compute (TF32 off): loss and grad_norm within 1e-5 relative,
+    mu (0.1 · the clipped gradient) within 1e-5 · max|mu|, the parameters
+    within 2·lr + 1e-5 · max|p| (Adam's first step moves an element whose
+    gradient is near 0 by ±lr, and two float32 orders of the same sum
+    can give it either sign)."""
+    import copy
+
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    cfg, model = _zoo(arch, "float32")
+    cpu = init_train_state(model, 0, device="cpu")
+    gpu = copy.deepcopy(cpu)
+    gpu["params"].to(cuda)
+    gpu["opt"] = {"mu": {k: v.to(cuda) for k, v in cpu["opt"]["mu"].items()},
+                  "nu": {k: v.to(cuda) for k, v in cpu["opt"]["nu"].items()},
+                  "count": cpu["opt"]["count"].to(cuda)}
+    gpu["step"] = cpu["step"].to(cuda)
+    g = np.random.default_rng(3)
+    st = 32 + cfg.n_image_tokens
+    batch = {"tokens": torch.from_numpy(g.integers(0, cfg.vocab_size,
+                                                   (2, 32))),
+             "labels": torch.from_numpy(g.integers(0, cfg.vocab_size,
+                                                   (2, st))),
+             "loss_mask": torch.ones(2, st)}
+    if cfg.n_image_tokens:
+        batch["extra_embeds"] = torch.from_numpy(g.normal(
+            0, 1, (2, cfg.n_image_tokens, cfg.d_model)).astype(np.float32))
+    step = make_train_step(model, TrainConfig())
+    cpu, cm = step(cpu, batch)
+    gpu, gm = step(gpu, {k: v.to(cuda) for k, v in batch.items()})
+    for k in ("loss", "grad_norm"):
+        assert gm[k].device.type == "cuda"
+        assert abs(float(gm[k]) - float(cm[k])) <= 1e-5 * abs(float(cm[k]))
+    lr = float(cm["lr"])
+    for (n, p), (_, q) in zip(gpu["params"].named_parameters(),
+                              cpu["params"].named_parameters()):
+        err = (p.cpu() - q).abs().max().item()
+        assert err <= 2 * lr + 1e-5 * q.abs().max().item(), n
+        mu, want = gpu["opt"]["mu"][n].cpu(), cpu["opt"]["mu"][n]
+        assert (mu - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item(), n
+
+
+@pytest.mark.cuda
+def test_cuda_launch_train_smoke_resumes(cuda, tmp_path, capsys):
+    """The train launcher on the card: 8 steps with checkpoints at 4 and 8;
+    with step 8's gone it resumes at 4 and replays the same losses (the
+    reference's rtol 1e-5: the embedding's backward sums with atomics)."""
+    import shutil
+
+    from repro_torch.launch import train
+    argv = ["--smoke", "--steps", "8", "--ckpt-every", "4",
+            "--ckpt-dir", str(tmp_path), "--microbatches", "2"]
+    whole = train.run(argv)
+    assert "device=cuda" in capsys.readouterr().out
+    shutil.rmtree(tmp_path / "step_00000008")
+    resumed = train.run(argv)
+    assert resumed["start_step"] == 4
+    np.testing.assert_allclose([resumed["losses"][s] for s in range(4, 8)],
+                               [whole["losses"][s] for s in range(4, 8)],
+                               rtol=1e-5)

@@ -44,13 +44,30 @@ def test_importing_the_port_leaves_jax_unloaded():
             " 'repro_torch.train', 'repro_torch.serve.fleet',"
             " 'repro_torch.core.distributed', 'repro_torch.launch.mesh',"
             " 'repro_torch.configs', 'repro_torch.models',"
-            " 'repro_torch.serve.engine', 'repro_torch.core.scaling_laws'):\n"
+            " 'repro_torch.serve.engine', 'repro_torch.core.scaling_laws',"
+            " 'repro_torch.data', 'repro_torch.checkpoint',"
+            " 'repro_torch.launch.train', 'repro_torch.launch.roofline',"
+            " 'repro_torch.launch.perfgate'):\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.train", "repro_torch.launch.train", "repro_torch.data",
+    "repro_torch.checkpoint", "repro_torch.launch.perfgate",
+    "repro_torch.runtime"])
+def test_each_entry_module_imports_first(module):
+    """Each module imports in a fresh process as the first import (the
+    train launcher imports ``repro_torch.train`` before ``core``)."""
+    out = subprocess.run([sys.executable, "-c", f"import {module}"],
+                         capture_output=True, text=True, cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"}, timeout=120)
     assert out.returncode == 0, out.stderr

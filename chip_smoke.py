@@ -100,6 +100,24 @@ kernels from ``src/repro_torch/kernels/csrc``, then:
            phi3.5-moe at published widths cut to 2 layers: loss and
            gradients, router gradient and aux loss non-zero, 2
            microbatches against 1
+  phase 16 the zoo's recurrent, hybrid and audio families (no fit kernel
+           runs): (a) rwkv6-1.6b at its published size (24 layers, d 2048,
+           bf16 compute): prefill(31) + decode against forward_train(32),
+           b=2 x 8 tokens at float32 against the CPU, chunked_gla against
+           the step recurrence at T=1024 on layer 0's inputs, both modes;
+           (b) repro_torch.launch.serve --workload tokens --arch
+           rwkv6-1.6b (the reference launcher's traffic); (c) 14c's
+           serving mix on rwkv6 (decode bound: the weights plus each
+           slot's recurrent state, constant in the pooled length); (d)
+           zamba2-7b: float32 against the CPU cut to 13 layers (both
+           shared blocks and the tail), then at its published size
+           (81 layers, d 3584): prefill/decode consistency and 16
+           requests (prompts in [16, 512]) on 8 slots at max_len 1024,
+           peak memory under 60 GB; (e) whisper-base at its published
+           size: 8 x 1500 frames, 64-token prompts and 64 decode steps
+           against forward_train, float32 against the CPU, dec_pos read
+           past its 8192 rows (the clamp) on the card and the CPU, and
+           repro_torch.launch.train --arch whisper-base for 5 steps
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure, or when
@@ -447,6 +465,7 @@ def main() -> int:
     launches13, mesh_out = phase13(ctx)
     launches14, zoo_out = phase14(ctx)
     launches15, train_out = phase15(ctx)
+    launches16, family_out = phase16(ctx)
 
     # ----------------------------------------------------------------- report
     replaces = {   # the TPU kernel bodies in the JAX reference
@@ -465,7 +484,8 @@ def main() -> int:
                                           launches6, launches7, launches8,
                                           launches9, launches10, launches11,
                                           launches12, launches13,
-                                          launches14, launches15))
+                                          launches14, launches15,
+                                          launches16))
                 for k in launches2}
     kernels = []
     for name in ("moments_plain", "moments_packed", "moments_packed_ring",
@@ -508,7 +528,8 @@ def main() -> int:
         f"{json.dumps(fleet_out)}; phase12 async LSPIA "
         f"{json.dumps(async_out)}; phase13 mesh {json.dumps(mesh_out)}; "
         f"phase14 zoo {json.dumps(zoo_out)}; phase15 train "
-        f"{json.dumps(train_out)}; copy "
+        f"{json.dumps(train_out)}; phase16 families "
+        f"{json.dumps(family_out)}; copy "
         f"{copy_bw / 1e9:.1f} GB/s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -2083,9 +2104,9 @@ ZOO_TOL = 5e-2         # bf16 paths: max|Δ| / max|ref| (the reference's bar)
 ZOO_TOL_F32 = 1e-4     # float32 sums of up to 8192 terms in other orders
 ZOO_LONG = 4096        # 14a's prefill through the chunked path (2 chunks)
 ZOO_WINDOW_LONG = 6144  # gemma2's prefill past its 4096 window (3 chunks)
-# 14c: the launcher's traffic at a serving scale
-ZOO_REQUESTS, ZOO_SLOTS, ZOO_MAX_LEN, ZOO_NEW = 64, 16, 2048, 64
-ZOO_PROMPT = (16, 1024)    # prompt lengths log-uniform in [16, 1024]
+# 14c: the launcher's traffic at a serving scale: requests, slots,
+# max_len, new tokens, prompt lengths (log-uniform in the range)
+ZOO_MIX = (64, 16, 2048, 64, (16, 1024))
 ZOO_TRACE_STEPS = 16       # full-pool decode steps timed, then profiled
 PEAK_BF16_FLOPS = 989e12
 
@@ -2096,9 +2117,9 @@ def _zoo_free(c):
         c["torch"].cuda.empty_cache()
 
 
-def _zoo_copy(tf, params, device):
+def _zoo_copy(params, device):
     """A copy of the model on ``device`` (the original stays where it is)."""
-    out = tf.Transformer(params.cfg, device="meta")
+    out = type(params)(params.cfg, device="meta")
     out.load_state_dict({k: v.to(device) for k, v in
                          params.state_dict().items()}, assign=True)
     return out
@@ -2120,7 +2141,7 @@ def _zoo_consistency(c, model, params, b, s, tag):
     logits_p, st = model.prefill(params, {"tokens": toks[:, :s - 1]}, 2 * s)
     logits_d, st = model.decode_step(params, toks[:, s - 1:], st)
     for name, t in (("logits", full), ("prefill logits", logits_p),
-                    ("decode logits", logits_d), ("cache", st["k"])):
+                    ("decode logits", logits_d), *_state_leaves(st)):
         require(t.device.type == dev.type, f"{tag} {name} on {t.device}")
         require(bool(torch.isfinite(t.float()).all()), f"{tag} {name} finite")
     err_d = _zoo_rel(torch, logits_d[:, 0], full[:, -1])
@@ -2128,6 +2149,18 @@ def _zoo_consistency(c, model, params, b, s, tag):
     require(err_d <= ZOO_TOL and err_p <= ZOO_TOL,
             f"{tag} prefill/decode vs forward_train {err_p:.3e}/{err_d:.3e}")
     return {"prefill_vs_train": err_p, "decode_vs_train": err_d}
+
+
+def _state_leaves(state, prefix=""):
+    """A decode state's tensors as (name, tensor) pairs (``len`` is a host
+    int)."""
+    out = []
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out += _state_leaves(v, f"{prefix}{k}.")
+        elif not isinstance(v, int):
+            out.append((prefix + k, v))
+    return out
 
 
 def _zoo_chunked(c, model, params, cfg32, n, tag):
@@ -2151,13 +2184,14 @@ def _zoo_chunked(c, model, params, cfg32, n, tag):
     return err, toks, chunked
 
 
-def _zoo_traffic(vocab):
-    """14c's requests: (prompt, temperature), prompt lengths log-uniform in
-    ``ZOO_PROMPT``, every other request greedy, the rest at T = 0.8."""
+def _zoo_traffic(vocab, mix=ZOO_MIX):
+    """A serving mix's requests: (prompt, temperature), prompt lengths
+    log-uniform in its range, every other request greedy, the rest at
+    T = 0.8."""
     rng = np.random.default_rng(7)
-    lo, hi = ZOO_PROMPT
+    lo, hi = mix[4]
     out = []
-    for i in range(ZOO_REQUESTS):
+    for i in range(mix[0]):
         n = int(np.exp(rng.uniform(np.log(lo), np.log(hi))))
         out.append((rng.integers(3, vocab - 1, n).tolist(),
                     0.0 if i % 2 else 0.8))
@@ -2198,10 +2232,11 @@ def _zoo_bounds(eng):
     return decode, prefill, buffer_ms, weight_bytes
 
 
-def _zoo_serve(c, model, params):
-    """14c: ``ZOO_REQUESTS`` requests through a ServeEngine on the card,
+def _zoo_serve(c, model, params, mix=ZOO_MIX, bounds=None, tag="14c"):
+    """A serving mix (default 14c's) through a ServeEngine on the card,
     each ``engine.step`` between two CUDA events; decode ms per step over
-    the steps that admitted nothing, beside each step's bound.  Then the
+    the steps that admitted nothing, beside each step's bound (``bounds``:
+    the family's, default the transformer's ``_zoo_bounds``).  Then the
     prompts once more through ``model.prefill`` (CUDA events) for prefill
     tokens/s, and a window of full-pool decode steps, timed and then
     profiled, for the device's busy share and where its time goes."""
@@ -2209,14 +2244,18 @@ def _zoo_serve(c, model, params):
 
     from repro_torch.serve import EngineConfig, ServeEngine
     torch, dev = c["torch"], c["dev"]
-    ecfg = EngineConfig(n_slots=ZOO_SLOTS, max_len=ZOO_MAX_LEN)
+    _, slots, max_len, new, _ = mix
+    ecfg = EngineConfig(n_slots=slots, max_len=max_len)
     eng = ServeEngine(model, params, ecfg,
                       generator=torch.Generator(device=dev).manual_seed(7))
-    require(eng.state["k"].device.type == dev.type
-            and eng.device.type == dev.type, f"14c engine on {eng.device}")
-    traffic = _zoo_traffic(model.cfg.vocab_size)
-    reqs = [eng.submit(p, ZOO_NEW, t) for p, t in traffic]
-    decode_bound, prefill_bound, buffer_ms, weight_bytes = _zoo_bounds(eng)
+    require(eng.device.type == dev.type
+            and all(t.device.type == dev.type
+                    for _, t in _state_leaves(eng.state)),
+            f"{tag} engine on {eng.device}")
+    traffic = _zoo_traffic(model.cfg.vocab_size, mix)
+    reqs = [eng.submit(p, new, t) for p, t in traffic]
+    decode_bound, prefill_bound, buffer_ms, weight_bytes = \
+        (bounds or _zoo_bounds)(eng)
 
     def produced():
         return sum(len(r.out_tokens) for r in reqs)
@@ -2236,9 +2275,9 @@ def _zoo_serve(c, model, params):
     c["sync"]()
     wall = time.perf_counter() - t0
     toks = produced()
-    require(all(r.done for r in reqs), "14c unfinished")
+    require(all(r.done for r in reqs), f"{tag} unfinished")
     peak = eng.stats["peak_len"]
-    require(peak < ZOO_MAX_LEN, f"14c peak pooled length {peak}")
+    require(peak < max_len, f"{tag} peak pooled length {peak}")
     decode = [(ev[0].elapsed_time(ev[1]), decode_bound(active, length))
               for ev, admitted, active, length in steps if not admitted]
     ms = [m for m, _ in decode]
@@ -2259,7 +2298,7 @@ def _zoo_serve(c, model, params):
         t = torch.tensor([p], dtype=torch.int64, device=dev)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        model.prefill(cp, {"tokens": t}, ZOO_MAX_LEN)
+        model.prefill(cp, {"tokens": t}, max_len)
         ev[1].record()
         c["sync"]()
         pre_ms += ev[0].elapsed_time(ev[1])
@@ -2270,39 +2309,44 @@ def _zoo_serve(c, model, params):
 
     # the window: a full pool of fresh requests beside the peak length,
     # ZOO_TRACE_STEPS decode steps timed, then as many under the profiler
-    for p, _ in traffic[:ZOO_SLOTS]:
+    for p, _ in traffic[:slots]:
         eng.submit(p, 3 + 2 * ZOO_TRACE_STEPS, 0.0)
     eng.step()                                   # admits all of them
-    require(not eng.queue and all(eng.slot_req), "14c window: full pool")
+    require(not eng.queue and all(eng.slot_req), f"{tag} window: full pool")
     win = []
     for _ in range(ZOO_TRACE_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         eng.step()
         ev[1].record()
-        win.append((ev, decode_bound(ZOO_SLOTS, eng.state["len"])))
+        win.append((ev, decode_bound(slots, eng.state["len"])))
     c["sync"]()
     win_ms = statistics.median(ev[0].elapsed_time(ev[1]) for ev, _ in win)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(ZOO_TRACE_STEPS):
             eng.step()
         c["sync"]()
-    require(all(r is not None for r in eng.slot_req), "14c window ended")
+    require(all(r is not None for r in eng.slot_req), f"{tag} window ended")
     dev_us, copy_us, by_name, n_kernels = _trace_device_us(prof)
-    require(dev_us > 0, "14c profiler saw no device time")
+    require(dev_us > 0, f"{tag} profiler saw no device time")
     per_step = dev_us / ZOO_TRACE_STEPS / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    kinds: dict[str, float] = {}
+    for k, t in by_name.items():
+        kinds[_kernel_kind(k)] = kinds.get(_kernel_kind(k), 0.0) + t
     o["window"] = {
-        "slots": ZOO_SLOTS, "pooled_len": eng.state["len"],
+        "slots": slots, "pooled_len": eng.state["len"],
         "ms_median": win_ms,
         "bound_ms_mean": sum(b for _, b in win) / len(win),
         "device_ms_per_step": per_step,
         "device_busy_share": per_step / win_ms,
         "copy_ms_per_step": copy_us / ZOO_TRACE_STEPS / 1e3,
         "kernels_per_step": n_kernels / ZOO_TRACE_STEPS,
+        "kinds_ms_per_step": {k: t / ZOO_TRACE_STEPS / 1e3 for k, t in
+                              sorted(kinds.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": {k[:240]: t / ZOO_TRACE_STEPS / 1e3
                                     for k, t in top}}
-    log(f"phase14c {json.dumps(o)}")
+    log(f"phase{tag} {json.dumps(o)}")
     return o
 
 
@@ -2334,7 +2378,7 @@ def phase14(c):
     g = torch.Generator(device=dev).manual_seed(ZOO_SEED + 2)
     toks = torch.randint(3, cfg.vocab_size, (2, 8), generator=g, device=dev)
     gpu32, _ = tf.forward_train(params, cfg32, toks)
-    cpu32, _ = tf.forward_train(_zoo_copy(tf, params, "cpu"), cfg32,
+    cpu32, _ = tf.forward_train(_zoo_copy(params, "cpu"), cfg32,
                                 toks.cpu())
     a["card_vs_cpu_f32"] = _zoo_rel(torch, gpu32.cpu(), cpu32)
     require(a["card_vs_cpu_f32"] <= ZOO_TOL_F32,
@@ -2443,9 +2487,9 @@ def _train_batches(c, cfg, shape, n, seed=TRAIN_SEED):
     return [pipe.next() for _ in range(n)]
 
 
-def _train_copy(tf, state, device):
+def _train_copy(state, device):
     """The train state on ``device`` (moments and counters copied too)."""
-    return {"params": _zoo_copy(tf, state["params"], device),
+    return {"params": _zoo_copy(state["params"], device),
             "opt": {"mu": {k: v.to(device, copy=True)
                            for k, v in state["opt"]["mu"].items()},
                     "nu": {k: v.to(device, copy=True)
@@ -2498,7 +2542,6 @@ def _train_correct(c):
     torch, dev = c["torch"], c["dev"]
     from repro_torch import configs
     from repro_torch.models import get_model
-    from repro_torch.models import transformer as tf
     from repro_torch.train import (TrainConfig, init_train_state,
                                    make_train_step)
     cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
@@ -2516,7 +2559,7 @@ def _train_correct(c):
         st = copy.deepcopy(start)
         runs[name] = make_train_step(m, dataclasses.replace(
             tc, microbatches=mb))(st, batch)
-    cpu = _train_copy(tf, start, "cpu")
+    cpu = _train_copy(start, "cpu")
     runs["cpu"] = make_train_step(model, tc)(
         cpu, {k: v.cpu() for k, v in batch.items()})
     c["sync"]()
@@ -2814,6 +2857,350 @@ def phase15(c):
             f"the training path launched a fit kernel: {launches}")
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase15 {out['wall_s']:.1f} s; fit-kernel launches {launches}")
+    return launches, out
+
+
+# ---------------------------------------------------------------- phase 16
+FAM_SEED = 16
+FAM_RWKV, FAM_ZAMBA, FAM_WHISPER = "rwkv6-1.6b", "zamba2-7b", "whisper-base"
+FAM_GLA_T = 1024           # 16a: chunked_gla against the step recurrence
+FAM_ZAMBA_CUT = 13         # 16d float32: two groups of 6 and a tail of 1
+# 16d: requests, slots, max_len, new tokens, prompt lengths
+FAM_ZAMBA_MIX = (16, 8, 1024, 32, (16, 512))
+FAM_ZAMBA_PEAK = 60e9      # 16d's budget for max_memory_allocated
+# 16e: batch, frames (Whisper's 30 s window), prompt, decode steps
+FAM_WHISPER_SHAPE = (8, 1500, 64, 64)
+FAM_WHISPER_TRAIN_STEPS = 5
+FAM_DEC_POS_PAST = (8200, 9000)   # pooled lengths past dec_pos's 8192 rows
+
+
+def _fam_model(c, arch, seed, **replace):
+    """A published config (fields replaced) with seeded float32 weights
+    drawn on the card, and its compute copy."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    torch, dev = c["torch"], c["dev"]
+    cfg = dataclasses.replace(configs.get_config(arch), **replace)
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               device=dev)
+    require(all(p.device.type == dev.type and p.dtype == torch.float32
+                for p in params.parameters()), f"{arch} f32 params on card")
+    return cfg, model, params
+
+
+def _fam_card_vs_cpu(c, cfg, params, batch, tag):
+    """forward_train at float32 compute on the card and on a CPU copy of
+    the same weights; max|Δ| / max|ref|."""
+    import dataclasses
+
+    from repro_torch.models import get_model
+    torch = c["torch"]
+    m32 = get_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    gpu, _ = m32.forward_train(params, batch)
+    cpu, _ = m32.forward_train(_zoo_copy(params, "cpu"),
+                               {k: v.cpu() for k, v in batch.items()})
+    err = _zoo_rel(torch, gpu.cpu(), cpu)
+    require(err <= ZOO_TOL_F32, f"{tag} card vs CPU float32 {err:.3e}")
+    return err
+
+
+def _fam_params(params, *names):
+    """The parameter count of ``params``' submodules ``names``."""
+    return sum(p.numel() for n in names
+               for p in getattr(params, n).parameters())
+
+
+def _rwkv_bounds(eng):
+    """rwkv6's least decode and prefill times on this card.  A decode step
+    reads the compute weights once and each active slot's recurrent state
+    (the shift inputs and the float32 wkv state of every layer) and writes
+    it back: constant in the pooled length.  Its operations: 2 per weight
+    of the layers and the logits, plus the recurrence's 6·H·hd² a layer,
+    per active slot.  A prefill of s tokens reads the weights once, writes
+    the state, and does s times the layers' 2 per weight and 4·H·hd² a
+    layer (state update and readout), plus the last position's logits."""
+    cfg, p = eng.model.cfg, eng.compute_params
+    weight_bytes = sum(t.numel() * t.element_size() for t in p.parameters())
+    state = eng.state["layers"]
+    slot_bytes = sum(t[:, :1].numel() * t.element_size()
+                     for t in state.values())
+    hd = cfg.resolved_head_dim
+    rec = cfg.n_layers * (cfg.d_model // hd) * hd * hd
+    layers = _fam_params(p, "layers")
+    logits = cfg.vocab_size * cfg.d_model
+
+    def decode(active, length):
+        ops = active * (2 * layers + 2 * logits + 6 * rec)
+        return max((weight_bytes + 2 * active * slot_bytes)
+                   / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS) * 1e3
+
+    def prefill(n):
+        ops = n * (2 * layers + 4 * rec) + 2 * logits
+        return max((weight_bytes + slot_bytes) / PEAK_BYTES_PER_S,
+                   ops / PEAK_BF16_FLOPS) * 1e3
+
+    return decode, prefill, decode(eng.ecfg.n_slots, 0), weight_bytes
+
+
+def _zamba_bounds(eng):
+    """zamba2's least decode and prefill times on this card.  A decode step
+    reads the compute weights once; per active slot it reads and writes
+    every Mamba layer's conv tail and float32 SSD state, and reads the
+    shared blocks' K/V rows below the pooled length (one cache per group).
+    Operations per token: 2 per Mamba weight, 2 per shared-block weight
+    for each of the n_groups applications, the logits, attention's
+    4·G·H·hd·length and the SSD recurrence's 6·nh·ds·hd a layer.  A
+    prefill of s tokens: the weights once, the states and K/V rows
+    written; s times the per-token products, causal attention's
+    2·G·H·hd·s², the recurrence's 4·nh·ds·hd a layer and token."""
+    from repro_torch.models import zamba2
+    cfg, p = eng.model.cfg, eng.compute_params
+    weight_bytes = sum(t.numel() * t.element_size() for t in p.parameters())
+    groups = zamba2.n_groups(cfg)
+    mamba_state = [t for name, t in _state_leaves(eng.state)
+                   if not name.startswith("shared_kv")]
+    slot_bytes = sum(t.numel() // eng.ecfg.n_slots * t.element_size()
+                     for t in mamba_state)
+    kv = eng.state["shared_kv"]["k"]
+    heads, hd = kv.shape[3], kv.shape[4]
+    row_bytes = groups * 2 * heads * hd * kv.element_size()
+    mamba = _fam_params(p, "blocks") + (_fam_params(p, "tail")
+                                        if zamba2.tail_layers(cfg) else 0)
+    shared = groups * _fam_params(p, "shared") // cfg.n_shared_blocks
+    logits = cfg.vocab_size * cfg.d_model
+    m2 = zamba2._m2cfg(cfg)
+    ssd = cfg.n_layers * m2.n_heads * m2.d_state * m2.head_dim
+
+    def decode(active, length):
+        ops = active * (2 * (mamba + shared) + 2 * logits + 6 * ssd
+                        + 4 * groups * heads * hd * length)
+        byts = weight_bytes + active * (2 * slot_bytes
+                                        + (length + 1) * row_bytes)
+        return max(byts / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS) * 1e3
+
+    def prefill(n):
+        ops = (n * (2 * (mamba + shared) + 4 * ssd) + 2 * logits
+               + 2 * groups * heads * hd * n * n)
+        return max((weight_bytes + slot_bytes + n * row_bytes)
+                   / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS) * 1e3
+
+    buffer_ms = (weight_bytes + 2 * kv.numel() * kv.element_size()
+                 + 2 * sum(t.numel() * t.element_size()
+                           for t in mamba_state)) / PEAK_BYTES_PER_S * 1e3
+    return decode, prefill, buffer_ms, weight_bytes
+
+
+def _fam_rwkv(c):
+    """16a: rwkv6-1.6b at its published size; the layer-0 recurrence; 16c
+    on the same model.  16b (the launcher) in between."""
+    torch, dev = c["torch"], c["dev"]
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import common as cm
+    from repro_torch.models import gla, rwkv6, rwkv6_model
+    out = {}
+    cfg, model, params = _fam_model(c, FAM_RWKV, FAM_SEED)
+    n_params = sum(p.numel() for p in params.parameters())
+    cp = model.compute_params(params)
+    a = _zoo_consistency(c, model, cp, 2, 32, "16a")
+    g = torch.Generator(device=dev).manual_seed(FAM_SEED + 2)
+    toks = torch.randint(3, cfg.vocab_size, (2, 8), generator=g, device=dev)
+    a["card_vs_cpu_f32"] = _fam_card_vs_cpu(c, cfg, params,
+                                            {"tokens": toks}, "16a")
+    _zoo_free(c)
+
+    # chunked_gla against the step recurrence on layer 0's inputs at float32
+    rcfg = rwkv6_model._cfg(cfg)
+    toks = torch.randint(3, cfg.vocab_size, (1, FAM_GLA_T), generator=g,
+                         device=dev)
+    with torch.no_grad():
+        h = cm.layernorm(params.ln0, cm.embed_lookup(params.embed, toks))
+        p0 = params.layers[0]
+        r, k, v, _, logw = rwkv6._time_mix_inputs(
+            p0.att, rcfg, cm.layernorm(p0.ln1, h))
+        u = torch.randn(p0.att.bonus.shape, generator=g, device=dev)
+        for mode in ("bonus", "inclusive"):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            y1, s1 = gla.chunked_gla(r, k, v, logw, u=u, chunk=rcfg.chunk,
+                                     mode=mode)
+            ev[1].record()
+            y2, s2 = gla.reference_recurrence(r, k, v, logw, u=u, mode=mode)
+            ev[2].record()
+            c["sync"]()
+            errs = (_zoo_rel(torch, y1, y2), _zoo_rel(torch, s1, s2))
+            require(max(errs) <= ZOO_TOL_F32,
+                    f"16a chunked_gla {mode} vs recurrence {errs}")
+            a[f"gla_{mode}"] = {
+                "y_err": errs[0], "state_err": errs[1],
+                "chunked_ms": ev[0].elapsed_time(ev[1]),
+                "recurrence_ms": ev[1].elapsed_time(ev[2]),
+                "logw_min": logw.min().item()}
+    a.update(params=n_params, param_gb_f32=n_params * 4 / 1e9)
+    out["16a"] = a
+    log(f"phase16a {cfg.arch}: {n_params} params (f32 "
+        f"{n_params * 4 / 1e9:.2f} GB) on {dev}; {json.dumps(a)}")
+    del h, r, k, v, logw, y1, y2, s1, s2
+    _zoo_free(c)
+
+    # 16b: the reference launcher's token traffic on rwkv6
+    run = serve_lib.run(["--workload", "tokens", "--arch", FAM_RWKV])
+    eng, reqs = run.pop("engine"), run.pop("reqs")
+    require(run["done"] == run["requests"], "16b unfinished")
+    require(all(t.device.type == dev.type
+                for _, t in _state_leaves(eng.state)),
+            f"16b engine on {eng.device}")
+    require(all(len(r.out_tokens) >= 1 for r in reqs), "16b tokens")
+    out["16b"] = run
+    log(f"phase16b {json.dumps(run)}")
+    del eng, reqs
+    _zoo_free(c)
+
+    # 16c: 14c's mix on rwkv6
+    out["16c"] = _zoo_serve(c, model, params, bounds=_rwkv_bounds, tag="16c")
+    del params, cp
+    _zoo_free(c)
+    return out
+
+
+def _fam_zamba(c):
+    """16d: zamba2-7b at float32 cut to 13 layers against the CPU, then at
+    its published size: consistency and an engine run, peak memory."""
+    torch, dev = c["torch"], c["dev"]
+    from repro_torch import configs
+    from repro_torch.models import zamba2
+    cfg, model, params = _fam_model(c, FAM_ZAMBA, FAM_SEED,
+                                    n_layers=FAM_ZAMBA_CUT)
+    require((zamba2.n_groups(cfg), zamba2.tail_layers(cfg)) == (2, 1),
+            "16d cut: both shared blocks and the tail")
+    g = torch.Generator(device=dev).manual_seed(FAM_SEED + 2)
+    toks = torch.randint(3, cfg.vocab_size, (2, 8), generator=g, device=dev)
+    d = {"card_vs_cpu_f32": _fam_card_vs_cpu(c, cfg, params,
+                                             {"tokens": toks}, "16d"),
+         "card_vs_cpu_layers": f"{cfg.n_layers} of "
+                               f"{configs.get_config(FAM_ZAMBA).n_layers}"}
+    del params
+    _zoo_free(c)
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = _fam_model(c, FAM_ZAMBA, FAM_SEED)
+    n_params = sum(p.numel() for p in params.parameters())
+    cp = model.compute_params(params)
+    d.update(_zoo_consistency(c, model, cp, 2, 32, "16d"))
+    del cp                        # the engine makes its own compute copy
+    _zoo_free(c)
+    d["serve"] = _zoo_serve(c, model, params, mix=FAM_ZAMBA_MIX,
+                            bounds=_zamba_bounds, tag="16d")
+    d["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    require(d["peak_gb"] * 1e9 < FAM_ZAMBA_PEAK,
+            f"16d peak memory {d['peak_gb']:.2f} GB")
+    d.update(params=n_params, param_gb_f32=n_params * 4 / 1e9)
+    log(f"phase16d {cfg.arch}: {n_params} params (f32 "
+        f"{n_params * 4 / 1e9:.2f} GB) on {dev}; peak "
+        f"{d['peak_gb']:.2f} GB; " + json.dumps(
+            {k: v for k, v in d.items() if k != "serve"}))
+    del params
+    _zoo_free(c)
+    return d
+
+
+def _fam_whisper(c):
+    """16e: whisper-base at its published size: a batch through prefill and
+    decode steps against forward_train at bf16, float32 on the card
+    against the CPU, dec_pos past its rows, and the train launcher."""
+    import dataclasses
+
+    torch, dev = c["torch"], c["dev"]
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import get_model
+    cfg, model, params = _fam_model(c, FAM_WHISPER, FAM_SEED)
+    cp = model.compute_params(params)
+    b, frames, prompt, steps = FAM_WHISPER_SHAPE
+    g = torch.Generator(device=dev).manual_seed(FAM_SEED + 4)
+    fr = torch.randn((b, frames, cfg.d_model), generator=g, device=dev)
+    toks = torch.randint(3, cfg.vocab_size, (b, prompt + steps),
+                         generator=g, device=dev)
+    full, _ = model.forward_train(cp, {"frames": fr, "dec_tokens": toks})
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, st = model.prefill(cp, {"frames": fr,
+                                    "dec_tokens": toks[:, :prompt]},
+                               prompt + steps)
+    ev[1].record()
+    errs = [_zoo_rel(torch, logits[:, 0], full[:, prompt - 1])]
+    for i in range(prompt, prompt + steps):
+        logits, st = model.decode_step(cp, toks[:, i:i + 1], st)
+        errs.append(_zoo_rel(torch, logits[:, 0], full[:, i]))
+    ev[2].record()
+    c["sync"]()
+    require(st["len"] == prompt + steps and max(errs) <= ZOO_TOL
+            and all(bool(torch.isfinite(t.float()).all())
+                    for _, t in _state_leaves(st)),
+            f"16e prefill/decode vs forward_train {max(errs):.3e}")
+    e = {"prefill_decode_vs_train_max": max(errs),
+         "prefill_vs_train": errs[0],
+         "prefill_ms": ev[0].elapsed_time(ev[1]),
+         "decode_ms_per_step": ev[1].elapsed_time(ev[2]) / steps}
+    del full, st, fr
+    _zoo_free(c)
+
+    # float32 on the card against the CPU, then dec_pos past its rows
+    fr = torch.randn((2, frames, cfg.d_model), generator=g, device=dev)
+    toks = torch.randint(3, cfg.vocab_size, (2, 17), generator=g, device=dev)
+    e["card_vs_cpu_f32"] = _fam_card_vs_cpu(
+        c, cfg, params, {"frames": fr, "dec_tokens": toks}, "16e")
+    m32 = get_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    cpu_params = _zoo_copy(params, "cpu")
+    _, st = m32.prefill(params, {"frames": fr, "dec_tokens": toks[:, :16]},
+                        32)
+    past = {}
+    for length in FAM_DEC_POS_PAST:
+        for where, p_, dv in (("card", params, dev), ("cpu", cpu_params,
+                                                      "cpu")):
+            s_ = {"self_kv": {k: v.to(dv, copy=True)
+                              for k, v in st["self_kv"].items()},
+                  "enc_out": st["enc_out"].to(dv), "len": length}
+            past[(length, where)] = m32.decode_step(
+                p_, toks[:, 16:].to(dv), s_)[0].cpu()
+    e["dec_pos_past_card_vs_cpu"] = max(
+        _zoo_rel(torch, past[(n, "card")], past[(n, "cpu")])
+        for n in FAM_DEC_POS_PAST)
+    require(e["dec_pos_past_card_vs_cpu"] <= ZOO_TOL_F32
+            and torch.equal(*(past[(n, "card")] for n in FAM_DEC_POS_PAST)),
+            f"16e dec_pos past its {cpu_params.dec_pos.shape[0]} rows: {e}")
+    del params, cp, cpu_params, st, past
+    _zoo_free(c)
+
+    # the train launcher on the audio batch
+    run = train_lib.run(["--arch", FAM_WHISPER, "--steps",
+                         str(FAM_WHISPER_TRAIN_STEPS), "--log-every", "1",
+                         "--device", str(dev)])
+    losses = [run["losses"][s] for s in sorted(run["losses"])]
+    require(len(losses) == FAM_WHISPER_TRAIN_STEPS
+            and all(np.isfinite(losses)), f"16e train losses {losses}")
+    e["train_losses"] = losses
+    e["train_wall_s"] = run["wall_s"]
+    log(f"phase16e {cfg.arch}: {json.dumps(e)}")
+    return e
+
+
+def phase16(c):
+    """The zoo's recurrent, hybrid and audio families (no fit kernel runs
+    here)."""
+    K = c["K"]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = _fam_rwkv(c)
+    out["16d"] = _fam_zamba(c)
+    out["16e"] = _fam_whisper(c)
+    _zoo_free(c)
+    launches = K.launch_counts()
+    require(not any(launches.values()),
+            f"the families' path launched a fit kernel: {launches}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase16 {out['wall_s']:.1f} s; fit-kernel launches {launches}")
     return launches, out
 
 

@@ -5,8 +5,8 @@ The reference's ``Moments``, ``Domain``, ``Polynomial``, ``FitSpec``,
 ``numpy.asarray``: this module never imports the reference.  The tests feed
 the reference's state through it so that both packages solve the same
 thing, and start both from the same stream state.  ``model_params`` and
-``decode_state`` carry a zoo model's parameter tree and KV cache the same
-way, so both packages run one model from one cache, and ``train_state``
+``decode_state`` carry a zoo model's parameter tree and decode state the
+same way, so both packages run one model from one cache, and ``train_state``
 carries a train state (parameters, AdamW moments, counters), so both
 packages take a train step from the same numbers.
 """
@@ -26,9 +26,12 @@ from repro_torch.core.streaming import StreamState
 from repro_torch.device import resolve_device
 from repro_torch.engine.plan import NumericsPolicy
 from repro_torch.select.sweep import DegreeSearch
-from repro_torch.models import transformer
+from repro_torch.models import encdec, rwkv6_model, transformer, zamba2
 
 MOMENT_FIELDS = ("gram", "vty", "yty", "count", "weight_sum")
+# the zoo families whose parameter and decode-state trees the port keeps
+# in the reference's layout, with its stacks as module lists
+_FAMILY_MODULES = {"ssm": rwkv6_model, "hybrid": zamba2, "audio": encdec}
 
 
 def tensor(a, device=None) -> torch.Tensor:
@@ -124,26 +127,42 @@ def to_numpy(obj) -> dict:
     return out
 
 
+def _assign(mod, tree, pick, dev):
+    """The reference subtree ``tree`` as ``mod``'s parameters, each leaf
+    through ``pick``; an ``nn.ModuleList`` takes element ``i`` of its
+    stacked subtree's next leading axis (nested lists, the next ones)."""
+    if isinstance(mod, torch.nn.ModuleList):
+        for i, child in enumerate(mod):
+            _assign(child, tree, lambda a, i=i: pick(a)[i], dev)
+        return
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            _assign(getattr(mod, name), sub, pick, dev)
+        else:
+            setattr(mod, name, torch.nn.Parameter(
+                _leaf(pick(np.asarray(sub)), dev), requires_grad=False))
+
+
 def model_params(ref_tree, cfg, device=None):
-    """A reference transformer parameter tree (``layers`` a tuple of ``g``
-    stacks with a leading ``n_groups`` axis) as the port's model: layer
-    ``i`` is slot ``i % g`` of group ``i // g``."""
+    """A reference parameter tree as the port's model.  Transformers: the
+    ``layers`` tuple of ``g`` stacks with a leading ``n_groups`` axis
+    (layer ``i`` is slot ``i % g`` of group ``i // g``).  rwkv6, zamba2
+    and whisper: each stacked subtree unstacked into its module list
+    (``layers``; ``blocks`` (n_groups, attn_every), ``tail``,
+    ``shared``; ``enc_layers``, ``dec_layers``)."""
     dev = resolve_device(device)
-    g = transformer.group_size(cfg)
-    model = transformer.Transformer(cfg, device="meta")
-
-    def assign(mod, tree, pick):
-        for name, sub in tree.items():
-            if isinstance(sub, dict):
-                assign(getattr(mod, name), sub, pick)
-            else:
-                setattr(mod, name, torch.nn.Parameter(
-                    _leaf(pick(np.asarray(sub)), dev), requires_grad=False))
-
-    assign(model.embed, ref_tree["embed"], lambda a: a)
-    assign(model.final_norm, ref_tree["final_norm"], lambda a: a)
-    for i, layer in enumerate(model.layers):
-        assign(layer, ref_tree["layers"][i % g], lambda a, i=i: a[i // g])
+    same = lambda a: a
+    if cfg.family in _FAMILY_MODULES:
+        model = _FAMILY_MODULES[cfg.family].abstract_params(cfg)
+        _assign(model, ref_tree, same, dev)
+    else:
+        g = transformer.group_size(cfg)
+        model = transformer.Transformer(cfg, device="meta")
+        _assign(model.embed, ref_tree["embed"], same, dev)
+        _assign(model.final_norm, ref_tree["final_norm"], same, dev)
+        for i, layer in enumerate(model.layers):
+            _assign(layer, ref_tree["layers"][i % g],
+                    lambda a, i=i: a[i // g], dev)
     left = [n for n, p in model.named_parameters() if p.device.type == "meta"]
     if left:
         raise ValueError(f"the reference tree has no {left}")
@@ -151,10 +170,19 @@ def model_params(ref_tree, cfg, device=None):
 
 
 def decode_state(ref_state, cfg, device=None) -> dict:
-    """A reference decode state (grouped cache stacks, ``len`` a scalar) as
-    the port's: ``k``/``v`` of (n_layers, batch, max_len, kv_heads,
-    head_dim) in layer order, ``len`` a host int."""
+    """A reference decode state (``len`` a scalar) as the port's, ``len`` a
+    host int.  Transformers: the grouped cache stacks as ``k``/``v`` of
+    (n_layers, batch, max_len, kv_heads, head_dim) in layer order.  rwkv6,
+    zamba2 and whisper keep the reference's tree, leaf for leaf."""
     dev = resolve_device(device)
+    length = int(np.asarray(ref_state["len"]))
+    if cfg.family in _FAMILY_MODULES:
+        def tree(t):
+            if isinstance(t, dict):
+                return {k: tree(v) for k, v in t.items()}
+            return _leaf(t, dev)
+        return dict(tree({k: v for k, v in ref_state.items()
+                          if k != "len"}), len=length)
     g = transformer.group_size(cfg)
     layers = ref_state["layers"]
 
@@ -162,8 +190,7 @@ def decode_state(ref_state, cfg, device=None) -> dict:
         return torch.stack([_leaf(np.asarray(layers[i % g][key])[i // g], dev)
                             for i in range(cfg.n_layers)])
 
-    return {"k": stack("k"), "v": stack("v"),
-            "len": int(np.asarray(ref_state["len"]))}
+    return {"k": stack("k"), "v": stack("v"), "len": length}
 
 
 def train_state(ref_state, cfg, device=None) -> dict:

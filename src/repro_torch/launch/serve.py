@@ -17,6 +17,10 @@ published size, 12 requests on 4 slots, as the reference launcher):
     PYTHONPATH=src python -m repro_torch.launch.serve --workload tokens
     PYTHONPATH=src python -m repro_torch.launch.serve --workload tokens \
         --smoke --device cpu
+
+Any decoder arch of ``configs`` serves, the recurrent and hybrid ones too
+(``--arch rwkv6-1.6b``, ``--arch zamba2-7b``); ``--arch whisper-base``
+raises ``ValueError``: its prefill needs encoder frames besides tokens.
 """
 from __future__ import annotations
 
@@ -222,9 +226,14 @@ def serve_tokens(args) -> dict:
     from repro_torch.models import get_model
     from repro_torch.serve import EngineConfig, ServeEngine
 
-    dev = resolve_device(args.device)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.arch}: the token engine takes token prompts, and an "
+            "encoder-decoder's prefill needs frames as well (as in the "
+            "reference's engine)")
+    dev = resolve_device(args.device)
     model = get_model(cfg)
     params = model.init_params(0, device=dev)
     engine = ServeEngine(model, params,

@@ -76,6 +76,16 @@ def _vlm_batch(cfg, batch, device):
     return batch
 
 
+def _audio_batch(cfg, batch, seq_len, device):
+    """The reference launcher's audio batch: zero frames of (b, seq_len,
+    d_model) for the encoder, the tokens as the decoder's."""
+    b = batch["tokens"].shape[0]
+    return {"frames": torch.zeros((b, seq_len, cfg.d_model),
+                                  dtype=torch.bfloat16, device=device),
+            "dec_tokens": batch["tokens"], "labels": batch["labels"],
+            "loss_mask": batch["loss_mask"]}
+
+
 def run(argv=None) -> dict:
     """Parse ``argv`` and train; returns the run's per-step losses
     (``{step: loss}``), its final state and monitor, the step it started
@@ -115,6 +125,8 @@ def run(argv=None) -> dict:
         batch = pipe.next()
         if cfg.family == "vlm":
             batch = _vlm_batch(cfg, batch, dev)
+        elif cfg.family == "audio":
+            batch = _audio_batch(cfg, batch, args.seq_len, dev)
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
         losses[step] = loss

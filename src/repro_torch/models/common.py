@@ -6,21 +6,23 @@ function applies it, as the reference's apply functions do its trees, so
 the two packages can be held against each other function by function.
 Parameters are float32 masters; a block casts a weight to the
 activations' dtype where the reference does (``.to`` of a tensor already
-in that dtype is free, which is what ``transformer.compute_copy`` relies
-on).
+in that dtype is free, which is what ``compute_copy`` relies on).
 
 ``specs`` trees give every parameter its logical axes, as data:
   layers, embed (d_model), q_heads, kv_heads, head_dim, mlp (d_ff), vocab,
-  experts, table_embed, batch, kv_seq
+  experts, table_embed, batch, kv_seq; the recurrent families add heads,
+  act_in, heads_embed, lora and conv
 """
 from __future__ import annotations
 
+import functools
 import math
 import types
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 
 # ---------------------------------------------------------------- init utils
@@ -46,6 +48,20 @@ def zeros(shape, *, device=None, dtype=torch.float32) -> nn.Parameter:
 def ones(shape, *, device=None, dtype=torch.float32) -> nn.Parameter:
     return nn.Parameter(torch.ones(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def full(shape, value, *, device=None, dtype=torch.float32) -> nn.Parameter:
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def make_generator(generator, device) -> torch.Generator:
+    """``generator`` itself, or a generator on ``device`` seeded with the
+    int ``generator`` (0 for None)."""
+    if isinstance(generator, torch.Generator):
+        return generator
+    seed = 0 if generator is None else int(generator)
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 # ---------------------------------------------------------------- norms
@@ -170,8 +186,64 @@ def param_view(module: nn.Module, tensors):
     return build(module, "")
 
 
+def compute_copy(params: nn.Module, dtype, keep_float32):
+    """``params`` (a zoo model, rebuilt on the meta device from its
+    ``cfg``) with every weight cast to ``dtype`` once, except where
+    ``keep_float32(module, name)``: the leaves the reference reads in
+    float32 are shared with ``params``.  When every weight is already
+    ``dtype``, ``params`` itself."""
+    if all(p.dtype == dtype for p in params.parameters()):
+        return params
+    out = type(params)(params.cfg, device="meta")
+    for (_, dst), (_, src) in zip(out.named_modules(), params.named_modules()):
+        for name, t in src.named_parameters(recurse=False):
+            keep = keep_float32(src, name)
+            setattr(dst, name, nn.Parameter(t if keep else t.to(dtype),
+                                            requires_grad=False))
+    return out
+
+
+def is_norm(module: nn.Module, name: str = "") -> bool:
+    return isinstance(module, (RMSNorm, LayerNorm))
+
+
+def remat(cfg, fn):
+    """``fn`` under full activation checkpointing unless ``cfg.remat`` is
+    "none": the reference's ``jax.checkpoint`` of a layer, which keeps its
+    input and recomputes the rest in the backward pass."""
+    if cfg.remat == "none":
+        return fn
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+
+
+def step_layers(layers, h, states, step):
+    """``h, new = step(p, h, state)`` for each layer ``p`` on its slice of
+    the stacked ``states`` (a dict of tensors with a leading layer axis),
+    the new state written back into the slice in place."""
+    for i, p in enumerate(layers):
+        view = {k: a[i] for k, a in states.items()}
+        h, new = step(p, h, view)
+        for k, a in new.items():
+            view[k].copy_(a)
+    return h
+
+
 # ---------------------------------------------------------------- spec trees
 def add_layer_axis_to_specs(specs):
     if isinstance(specs, dict):
         return {k: add_layer_axis_to_specs(v) for k, v in specs.items()}
     return ("layers",) + tuple(specs)
+
+
+def module_tree(mod: nn.Module, leaf):
+    """``mod``'s parameters as a nested dict of ``leaf(parameter)``."""
+    tree = {n: leaf(p) for n, p in mod.named_parameters(recurse=False)}
+    for n, child in mod.named_children():
+        tree[n] = module_tree(child, leaf)
+    return tree
+
+
+def shape_tree(mod: nn.Module, lead: tuple = ()):
+    """``mod``'s parameter shapes, each behind the leading axes ``lead``:
+    the reference's stacked tree of a list of identical layers."""
+    return module_tree(mod, lambda p: tuple(lead) + tuple(p.shape))

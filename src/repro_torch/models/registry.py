@@ -11,9 +11,9 @@
   model.init_decode_state(batch, max_len) / decode_state_specs
   model.input_specs(shape)                  meta-tensor stand-ins
 
-``params`` is the model's ``nn.Module``.  The families that go through
-``transformer.py`` are ported (dense, moe, vlm); ``ssm``, ``hybrid`` and
-``audio`` raise ``NotImplementedError``.
+``params`` is the model's ``nn.Module``: dense, moe and vlm go through
+``transformer.py``, ssm through ``rwkv6_model.py``, hybrid through
+``zamba2.py`` and audio through ``encdec.py``.
 """
 from __future__ import annotations
 
@@ -24,13 +24,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import common, transformer
-
-NOT_PORTED = {
-    "ssm": "rwkv6 (models/rwkv6.py, rwkv6_model.py)",
-    "hybrid": "zamba2 (models/zamba2.py, mamba2.py)",
-    "audio": "whisper (models/encdec.py)",
-}
+from repro_torch.models import (common, encdec, rwkv6_model, transformer,
+                                zamba2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,9 +45,19 @@ class ModelAPI:
     input_specs: Callable         # (ShapeConfig) -> dict of meta tensors
 
     def batch_tokens(self, shape: ShapeConfig) -> int:
-        """Tokens processed per step for this (cfg, shape)."""
-        if shape.kind in ("train", "prefill"):
+        """Tokens processed per step for this (cfg, shape): audio counts
+        its decoder tokens (and, at prefill, the frames)."""
+        if shape.kind == "train":
+            if self.cfg.family == "audio":
+                return shape.global_batch * encdec.dec_len(
+                    self.cfg, shape.seq_len, "train")
             return shape.global_batch * shape.seq_len
+        if shape.kind == "prefill":
+            n = shape.global_batch * shape.seq_len
+            if self.cfg.family == "audio":
+                n += shape.global_batch * encdec.dec_len(
+                    self.cfg, shape.seq_len, "prefill")
+            return n
         return shape.global_batch  # decode: 1 token per sequence
 
 
@@ -121,11 +126,63 @@ def _decoder_like(cfg: ModelConfig, mod) -> ModelAPI:
         input_specs=input_specs)
 
 
+def _encdec_api(cfg: ModelConfig) -> ModelAPI:
+    skeleton = encdec.abstract_params(cfg)
+
+    def init_params(generator=None, dtype=None, device=None):
+        return encdec.init_params(cfg, generator, dtype,
+                                  device=resolve_device(device))
+
+    def forward_train(params, batch):
+        return encdec.forward_train(params, cfg, batch)
+
+    def prefill(params, batch, max_len):
+        return encdec.prefill(params, cfg, batch, max_len)
+
+    def decode_step(params, token, state):
+        return encdec.decode_step(params, cfg, token, state)
+
+    def init_decode_state(batch, max_len, enc_len=None, device=None):
+        dev = device if device == "meta" else resolve_device(device)
+        return encdec.init_decode_state(cfg, batch, max_len,
+                                        enc_len or max_len, device=dev)
+
+    def input_specs(shape: ShapeConfig):
+        dt = transformer.torch_dtype(cfg.compute_dtype)
+        frames = torch.empty((shape.global_batch, shape.seq_len,
+                              cfg.d_model), dtype=dt, device="meta")
+        if shape.kind in ("train", "prefill"):
+            dl = encdec.dec_len(cfg, shape.seq_len, shape.kind)
+            specs = {"frames": frames, "dec_tokens": _tok_specs(shape, dl)}
+            if shape.kind == "train":
+                specs["labels"] = _tok_specs(shape, dl)
+                specs["loss_mask"] = torch.empty(
+                    (shape.global_batch, dl), dtype=dt, device="meta")
+            return specs
+        dl = encdec.dec_len(cfg, shape.seq_len, "prefill")
+        state = encdec.init_decode_state(cfg, shape.global_batch, dl + 256,
+                                         shape.seq_len, device="meta")
+        return {"token": _tok_specs(shape, 1), "state": state}
+
+    return ModelAPI(
+        cfg=cfg, init_params=init_params,
+        abstract_params=lambda: encdec.abstract_params(cfg),
+        param_specs=lambda: encdec.param_specs(cfg),
+        param_shapes=encdec.param_shapes, compute_params=encdec.compute_copy,
+        param_view=lambda tensors: common.param_view(skeleton, tensors),
+        forward_train=forward_train, prefill=prefill, decode_step=decode_step,
+        init_decode_state=init_decode_state,
+        decode_state_specs=lambda: encdec.decode_state_specs(cfg),
+        input_specs=input_specs)
+
+
 def get_model(cfg: ModelConfig) -> ModelAPI:
     if cfg.family in ("dense", "moe", "vlm"):
         return _decoder_like(cfg, transformer)
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({NOT_PORTED[cfg.family]}) is not "
-            "ported yet: ROADMAP.md Queue 1 item 15 step 4")
+    if cfg.family == "ssm":
+        return _decoder_like(cfg, rwkv6_model)
+    if cfg.family == "hybrid":
+        return _decoder_like(cfg, zamba2)
+    if cfg.family == "audio":
+        return _encdec_api(cfg)
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -134,22 +134,13 @@ class Transformer(nn.Module):
 def init_params(cfg: ModelConfig, generator=None, dtype=None, device=None):
     """Seeded random weights: ``generator`` is a ``torch.Generator`` on
     ``device`` or an int seed."""
-    if not isinstance(generator, torch.Generator):
-        seed = 0 if generator is None else int(generator)
-        generator = torch.Generator(device=device).manual_seed(seed)
-    return Transformer(cfg, generator=generator, device=device, dtype=dtype)
+    return Transformer(cfg, generator=cm.make_generator(generator, device),
+                       device=device, dtype=dtype)
 
 
 def abstract_params(cfg: ModelConfig):
     """The model on the meta device: shapes and dtypes, no storage."""
     return Transformer(cfg, device="meta")
-
-
-def _module_tree(mod: nn.Module, leaf):
-    tree = {n: leaf(p) for n, p in mod.named_parameters(recurse=False)}
-    for n, child in mod.named_children():
-        tree[n] = _module_tree(child, leaf)
-    return tree
 
 
 def param_shapes(params) -> dict:
@@ -159,16 +150,10 @@ def param_shapes(params) -> dict:
     g = group_size(cfg)
     n_groups = cfg.n_layers // g
 
-    def stacked(tree):
-        if isinstance(tree, dict):
-            return {k: stacked(v) for k, v in tree.items()}
-        return (n_groups,) + tree
-
-    shape = lambda p: tuple(p.shape)
     return {
-        "embed": _module_tree(params.embed, shape),
-        "final_norm": _module_tree(params.final_norm, shape),
-        "layers": tuple(stacked(_module_tree(params.layers[j], shape))
+        "embed": cm.shape_tree(params.embed),
+        "final_norm": cm.shape_tree(params.final_norm),
+        "layers": tuple(cm.shape_tree(params.layers[j], (n_groups,))
                         for j in range(g)),
     }
 
@@ -201,18 +186,10 @@ def compute_copy(params):
     at each product cast once.  Norm parameters and the MoE router, which
     the reference reads in float32, are shared with ``params``; with float32
     compute ``params`` itself is returned."""
-    cfg = params.cfg
-    dt = torch_dtype(cfg.compute_dtype)
-    if all(p.dtype == dt for p in params.parameters()):
-        return params
-    out = Transformer(cfg, device="meta")
-    for (_, dst), (_, src) in zip(out.named_modules(), params.named_modules()):
-        for name, t in src.named_parameters(recurse=False):
-            keep = (isinstance(src, (cm.RMSNorm, cm.LayerNorm))
-                    or (isinstance(src, moe_lib.MoE) and name == "router"))
-            setattr(dst, name, nn.Parameter(t if keep else t.to(dt),
-                                            requires_grad=False))
-    return out
+    return cm.compute_copy(
+        params, torch_dtype(params.cfg.compute_dtype),
+        lambda mod, name: cm.is_norm(mod) or (isinstance(mod, moe_lib.MoE)
+                                              and name == "router"))
 
 
 # ----------------------------------------------------------------- bodies

@@ -1,11 +1,12 @@
 """Batched serving engine: continuous-batching decode over a fixed slot pool
 (port of ``repro.serve.engine``).
 
-  * ``n_slots`` concurrent sequences share one KV cache allocation (slot =
-    batch row).
+  * ``n_slots`` concurrent sequences share one decode-state allocation
+    (slot = batch row): a KV cache, a recurrent state (rwkv6, Mamba2) or
+    both (zamba2).
   * Requests queue in; a free slot is filled by running prefill for one
-    request, whose cache then replaces the slot's row of the pool, and the
-    slot joins the batched decode step.
+    request, whose state then replaces the slot's row of the pool, and
+    the slot joins the batched decode step.
   * Finished slots (EOS, max_new_tokens, or a full cache) are released.
 
 The host loop, the slot pool, admit/step/run and the stop rules are the
@@ -90,16 +91,34 @@ class ServeEngine:
     def _free_slots(self):
         return [i for i, r in enumerate(self.slot_req) if r is None]
 
+    def _merge(self, pool, single, slot: int):
+        """``single`` (a one-sequence state tree) written into slot ``slot``
+        of ``pool`` in place.  Each tensor's batch axis is the first where
+        the pool has ``n_slots`` and the single state 1; a scalar, or a
+        leaf of the pool's own shape, is taken from ``single``."""
+        if isinstance(pool, dict):
+            return {k: self._merge(pool[k], single[k], slot) for k in pool}
+        if (not isinstance(pool, torch.Tensor) or pool.ndim == 0
+                or pool.shape == single.shape):
+            return single
+        for ax in range(pool.ndim):
+            if pool.shape[ax] == self.ecfg.n_slots and single.shape[ax] == 1:
+                pool.narrow(ax, slot, 1).copy_(single)
+                return pool
+        raise ValueError(f"no batch axis: {tuple(pool.shape)} vs "
+                         f"{tuple(single.shape)}")
+
     def _write_slot(self, slot: int, prefill_state, req: Request,
                     first_logits):
-        """Copy a single-sequence prefill cache (all ``max_len`` rows) into
-        slot ``slot`` of the shared pool."""
+        """Merge a single-sequence prefill state (any model's tree: a K/V
+        cache of all ``max_len`` rows, a recurrent state, both) into slot
+        ``slot`` of the shared pool."""
         plen = prefill_state["len"]
-        for key in ("k", "v"):
-            self.state[key][:, slot] = prefill_state[key][:, 0]
+        pooled_len = self.state["len"]
+        self.state = self._merge(self.state, prefill_state, slot)
         # shared scalar length: slots decode in lockstep from the pooled
         # max; per-slot logical lengths are tracked host-side
-        self.state["len"] = max(self.state["len"], plen)
+        self.state["len"] = max(pooled_len, plen)
         self.slot_req[slot] = req
         self.slot_len[slot] = plen
         tok = int(sampling.sample(first_logits[:, -1, :], req.temperature,

@@ -27,7 +27,14 @@ DIFFERENCES = {
 
 # modules without ``__all__``: their public top-level names (functions and
 # classes defined there, constants), with the deliberate differences
-MODULES = ("launch.perfgate", "launch.roofline", "launch.train")
+MODULES = ("launch.perfgate", "launch.roofline", "launch.train",
+           "models.gla", "models.rwkv6", "models.rwkv6_model",
+           "models.mamba2", "models.zamba2", "models.encdec")
+# the zoo families' modules add their nn.Module classes (the reference's
+# parameter trees), ``param_shapes`` and ``compute_copy`` (the registry's
+# contract for every family) and the predicate of the leaves the
+# reference reads in float32
+_FAMILY = {"compute_copy", "param_shapes"}
 MODULE_DIFFERENCES = {
     # eager PyTorch has no partitioned HLO text to parse (its role is
     # engine.collective_counter's), and the card's links are NVLink
@@ -35,6 +42,15 @@ MODULE_DIFFERENCES = {
     # the parser and a run() that returns the losses, for tests and the
     # smoke script, as launch/serve.py has
     "launch.train": (set(), {"parser", "run"}),
+    "models.rwkv6": (set(), {"Block", "TimeMix", "ChannelMix",
+                             "keeps_float32"}),
+    "models.rwkv6_model": (set(), {"RWKV6LM"} | _FAMILY),
+    "models.mamba2": (set(), {"Mamba2", "keeps_float32"}),
+    "models.zamba2": (set(), {"Zamba2", "MambaLayer", "SharedBlock",
+                              "SharedMLP"} | _FAMILY),
+    # the learned decoder positions' row count, which decode_step clamps to
+    "models.encdec": (set(), {"EncDec", "EncLayer", "DecLayer",
+                              "DEC_POS"} | _FAMILY),
 }
 
 

@@ -175,7 +175,8 @@ def test_launcher_resume_equals_the_unbroken_run(tmp_path, microbatches):
         assert torch.equal(p, q), n
 
 
-def test_launcher_vlm_batch_and_unported_options(tmp_path, capsys):
+def test_launcher_vlm_batch_and_unported_options(tmp_path, capsys,
+                                                  monkeypatch):
     out = train_lib.run(["--arch", "llava-next-mistral-7b", "--smoke",
                          "--device", "cpu", "--steps", "2", "--seq-len", "16",
                          "--global-batch", "2"])
@@ -184,6 +185,25 @@ def test_launcher_vlm_batch_and_unported_options(tmp_path, capsys):
     assert "final loss" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="step 5"):
         train_lib.run(["--smoke", "--device", "cpu", "--model-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="step 4"):
-        train_lib.run(["--arch", "whisper-base", "--smoke", "--device",
-                       "cpu"])
+    # the audio batch, as the reference launcher builds it: zero frames of
+    # (b, seq_len, d_model) for the encoder, the tokens as the decoder's
+    seen = []
+    real = train_lib._audio_batch
+
+    def spy(cfg, batch, seq_len, device):
+        out = real(cfg, batch, seq_len, device)
+        seen.append({k: (tuple(v.shape), v.dtype) for k, v in out.items()})
+        assert not out["frames"].any()
+        assert out["dec_tokens"] is batch["tokens"]
+        return out
+
+    monkeypatch.setattr(train_lib, "_audio_batch", spy)
+    out = train_lib.run(["--arch", "whisper-base", "--smoke", "--device",
+                         "cpu", "--steps", "2", "--seq-len", "16",
+                         "--global-batch", "2"])
+    assert sorted(out["losses"]) == [0, 1]
+    assert all(np.isfinite(v) for v in out["losses"].values())
+    assert seen[0] == {"frames": ((2, 16, 64), torch.bfloat16),
+                       "dec_tokens": ((2, 16), torch.int32),
+                       "labels": ((2, 16), torch.int32),
+                       "loss_mask": ((2, 16), torch.float32)}

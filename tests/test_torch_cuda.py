@@ -577,3 +577,122 @@ def test_cuda_launch_train_smoke_resumes(cuda, tmp_path, capsys):
     np.testing.assert_allclose([resumed["losses"][s] for s in range(4, 8)],
                                [whole["losses"][s] for s in range(4, 8)],
                                rtol=1e-5)
+
+
+FAMILY_ARCHS = ("rwkv6-1.6b", "zamba2-7b", "whisper-base")
+
+
+def _family_batch(cfg, b, s, seed):
+    """Tokens (whisper: 24 frames and the decoder's tokens) and the key of
+    the tokens."""
+    g = np.random.default_rng(seed)
+    toks = torch.from_numpy(g.integers(3, cfg.vocab_size, (b, s)))
+    if cfg.family == "audio":
+        return {"frames": torch.from_numpy(g.normal(
+            0, 1, (b, 24, cfg.d_model)).astype(np.float32)),
+            "dec_tokens": toks}, "dec_tokens"
+    return {"tokens": toks}, "tokens"
+
+
+def _state_tensors(state, prefix=""):
+    for k, v in state.items():
+        if isinstance(v, dict):
+            yield from _state_tensors(v, f"{prefix}{k}.")
+        elif isinstance(v, torch.Tensor):
+            yield prefix + k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_cuda_family_matches_the_cpu(cuda, arch):
+    """The float32 checks of chip_smoke's 16a, 16d and 16e at the smoke
+    configs: the same seeded weights on the card and on the CPU,
+    forward_train, prefill and decode_step within 1e-5 of max|ref| (TF32
+    off; two float32 orders of the same sums), every float32 leaf of the
+    prefill state too, its bf16 leaves (K/V, shift inputs, whisper's
+    encoder output) within one bf16 step (2⁻⁷).  Both decode from the
+    CPU's prefill state (the card's copy of it): a bf16 leaf rounded to
+    the neighbouring step on one device would otherwise move every
+    product that reads it."""
+    import copy
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, model = _zoo(arch, "float32")
+    cpu_params = model.init_params(0, device="cpu")
+    gpu_params = copy.deepcopy(cpu_params).to(cuda)
+    batch, key = _family_batch(cfg, 2, 32, 1)
+    on = lambda b, dev: {k: v.to(dev) for k, v in b.items()}
+
+    def close(name, got, want, tol=1e-5):
+        assert got.device.type == "cuda", name
+        got, want = got.float().cpu(), want.float()
+        err = (got - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), (name, err)
+
+    close("forward_train", model.forward_train(gpu_params, on(batch, cuda))[0],
+          model.forward_train(cpu_params, batch)[0])
+    pre = dict(batch, **{key: batch[key][:, :-1]})
+    glog, gstate = model.prefill(gpu_params, on(pre, cuda), 40)
+    clog, cstate = model.prefill(cpu_params, pre, 40)
+    close("prefill", glog, clog)
+    cleaves = dict(_state_tensors(cstate))
+    for name, t in _state_tensors(gstate):
+        close(name, t, cleaves[name], 2.0 ** -7 if t.dtype == torch.bfloat16
+              else 1e-5)
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else
+                v.to(cuda) if isinstance(v, torch.Tensor) else v
+                for k, v in tree.items()}
+
+    tok = batch[key][:, -1:]
+    gdec = model.decode_step(gpu_params, tok.to(cuda), to_card(cstate))[0]
+    close("decode_step", gdec, model.decode_step(cpu_params, tok, cstate)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_cuda_family_prefill_decode_match_forward_train(cuda, arch):
+    """The bf16 consistency of chip_smoke's 16a, 16d and 16e at the smoke
+    configs, on the card: prefill of s - 1 tokens on the compute copy and
+    one decode step against forward_train of s, within the reference's
+    5e-2 of max|ref|."""
+    cfg, model = _zoo(arch, "bfloat16")
+    params = model.init_params(0, device=cuda)
+    cp = model.compute_params(params)
+    batch, key = _family_batch(cfg, 2, 24, 2)
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    full, _ = model.forward_train(params, batch)
+    logits, state = model.prefill(cp, dict(batch, **{key: batch[key][:, :-1]}),
+                                  32)
+    dec, state = model.decode_step(cp, batch[key][:, -1:], state)
+    for got, want in ((logits[:, 0], full[:, -2]), (dec[:, 0], full[:, -1])):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 5e-2 * want.float().abs().max().item(), err
+    assert all(t.device.type == "cuda" for _, t in _state_tensors(state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("rwkv6-1.6b", "zamba2-7b"))
+def test_cuda_family_engine_serves_the_cpu_tokens(cuda, arch):
+    """Greedy serving of ragged requests past max_len on the card and on
+    the CPU at float32: the same tokens for every request, the pooled
+    recurrent state (and zamba2's shared K/V) on the card."""
+    import copy
+
+    from repro_torch.serve import EngineConfig, ServeEngine
+    cfg, model = _zoo(arch, "float32")
+    cpu_params = model.init_params(0, device="cpu")
+    g = np.random.default_rng(2)
+    prompts = [g.integers(3, 255, 5 + 4 * (i % 3)).tolist()
+               for i in range(10)]
+    outs = []
+    for params in (cpu_params, copy.deepcopy(cpu_params).to(cuda)):
+        eng = ServeEngine(model, params, EngineConfig(n_slots=4, max_len=24))
+        reqs = [eng.submit(p, 4 + (5 * i) % 13, 0.0)
+                for i, p in enumerate(prompts)]
+        eng.run()
+        assert all(r.done for r in reqs) and eng.stats["peak_len"] > 24
+        dev = next(params.parameters()).device
+        assert all(t.device == dev for _, t in _state_tensors(eng.state))
+        outs.append([r.out_tokens for r in reqs])
+    assert outs[0] == outs[1]

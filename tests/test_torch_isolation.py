@@ -47,7 +47,10 @@ def test_importing_the_port_leaves_jax_unloaded():
             " 'repro_torch.serve.engine', 'repro_torch.core.scaling_laws',"
             " 'repro_torch.data', 'repro_torch.checkpoint',"
             " 'repro_torch.launch.train', 'repro_torch.launch.roofline',"
-            " 'repro_torch.launch.perfgate'):\n"
+            " 'repro_torch.launch.perfgate', 'repro_torch.models.gla',"
+            " 'repro_torch.models.rwkv6', 'repro_torch.models.rwkv6_model',"
+            " 'repro_torch.models.mamba2', 'repro_torch.models.zamba2',"
+            " 'repro_torch.models.encdec'):\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
@@ -62,7 +65,8 @@ def test_importing_the_port_leaves_jax_unloaded():
 @pytest.mark.parametrize("module", [
     "repro_torch.train", "repro_torch.launch.train", "repro_torch.data",
     "repro_torch.checkpoint", "repro_torch.launch.perfgate",
-    "repro_torch.runtime"])
+    "repro_torch.runtime", "repro_torch.models.zamba2",
+    "repro_torch.models.encdec"])
 def test_each_entry_module_imports_first(module):
     """Each module imports in a fresh process as the first import (the
     train launcher imports ``repro_torch.train`` before ``core``)."""

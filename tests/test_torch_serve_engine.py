@@ -1,6 +1,6 @@
 """The token ServeEngine on the port against the reference engine, on the
-CPU, plus sampling, the launcher's ``--workload tokens`` and the batched
-serving example.
+CPU (transformers, rwkv6 and zamba2), plus sampling, the launcher's
+``--workload tokens`` and the batched serving example.
 
 Both engines run one model (the reference's weights carried with
 ``interop.model_params``) at float32 compute and temperature 0 over the
@@ -41,10 +41,15 @@ PROMPT_LENS = (5, 9, 13)        # three prefill shapes: three JAX compiles
 
 
 def _models(arch):
-    rc = dataclasses.replace(rconfigs.get_smoke_config(arch),
-                             compute_dtype="float32")
-    tc = dataclasses.replace(tconfigs.get_smoke_config(arch),
-                             compute_dtype="float32")
+    """The smoke config at float32 compute in both packages; the recurrent
+    families with chunks of 16 (one sub-block of chunked_gla, whose
+    off-diagonal pairs tests/test_torch_gla.py holds: the reference
+    compiles in half the time)."""
+    kw = {"compute_dtype": "float32"}
+    if rconfigs.get_smoke_config(arch).family in ("ssm", "hybrid"):
+        kw["ssm_chunk"] = 16
+    rc = dataclasses.replace(rconfigs.get_smoke_config(arch), **kw)
+    tc = dataclasses.replace(tconfigs.get_smoke_config(arch), **kw)
     rm, tm = rget_model(rc), tget_model(tc)
     rparams = rm.init_params(jax.random.PRNGKey(0))
     return rm, rparams, tm, interop.model_params(rparams, tc, device=CPU)
@@ -122,12 +127,17 @@ def _same_greedy_tokens(rreqs, treqs, rlog, tlog):
     return written_at
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "yi-6b"])
-@pytest.mark.parametrize("max_len", [64, 24])
+@pytest.mark.parametrize("max_len, arch", [
+    (m, a) for a in ("internlm2-1.8b", "yi-6b") for m in (64, 24)] + [
+    (24, "rwkv6-1.6b"), (24, "zamba2-7b")])
 def test_engines_serve_the_same_greedy_tokens(arch, max_len):
     """At max_len 24 the lockstep pooled length passes the buffer: both
     caches then take their writes on the last row (JAX's clamp), and the
-    calls that do are compared like every other."""
+    calls that do are compared like every other; the decode steps before
+    it run below the buffer.  rwkv6 pools a recurrent state only (it
+    ignores the length); zamba2 pools its Mamba states and its shared
+    blocks' K/V caches, each merged into the slot's row by the engine's
+    batch-axis search."""
     requests = _requests(256)
     rreqs, treqs, rlog, tlog, teng = _serve_both(arch, max_len, requests)
     written_at = _same_greedy_tokens(rreqs, treqs, rlog, tlog)
@@ -260,6 +270,30 @@ def test_launcher_serving_scale_knobs():
     assert [len(r.tokens) for r in out["reqs"]] == [8 + i for i in range(8)]
     assert out["engine"].ecfg.n_slots == 3
     assert out["peak_len"] == out["engine"].stats["peak_len"] > 0
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_launcher_serves_the_recurrent_families(arch):
+    """``--arch rwkv6-1.6b`` and ``zamba2-7b`` through the launcher: every
+    request finished, every token produced, the pool's state (rwkv6's
+    recurrent state; zamba2's Mamba states and shared K/V) on the device."""
+    out = tlaunch.run(["--workload", "tokens", "--arch", arch, "--smoke",
+                       "--device", "cpu", "--requests", "6", "--max-new",
+                       "5"])
+    assert out["done"] == 6 and out["tokens"] == 6 * 5
+    state = out["engine"].state
+    keys = {"rwkv6-1.6b": {"layers", "len"},
+            "zamba2-7b": {"blocks", "tail", "shared_kv", "len"}}[arch]
+    assert set(state) == keys
+    assert state["len"] == out["peak_len"]
+
+
+def test_launcher_refuses_audio_prompts():
+    """The token engine takes token prompts; whisper's prefill needs frames
+    too (the reference engine cannot take them either)."""
+    with pytest.raises(ValueError, match="token prompts"):
+        tlaunch.run(["--workload", "tokens", "--arch", "whisper-base",
+                     "--smoke", "--device", "cpu"])
 
 
 def test_batched_serving_example_runs_on_the_cpu():

@@ -1,13 +1,16 @@
 """The port's train step against the reference's, on the CPU.
 
-One step of each transformer family's smoke config (internlm2 dense,
-gemma2 softcaps and local/global, phi3.5 MoE, llava VLM), both packages
+One step of each family's smoke config (internlm2 dense, gemma2
+softcaps and local/global, phi3.5 MoE, llava VLM, rwkv6, zamba2 and
+whisper's encoder-decoder), both packages
 started from the reference's train state carried over with
 ``interop.train_state``, on the same numpy batch.  Bars:
 
 * float32 compute: loss, ce, aux, z and grad_norm within 1e-5 relative;
   mu after the step (0.1 · the clipped gradient) within 1e-5 · max|mu|
-  of each tensor (float32 sums in other orders); the updated parameters
+  of each tensor (float32 sums in other orders; ``RESIDUAL_GRADS``, whose
+  gradients are rounding residuals, within 1e-5 of the model's largest
+  mu); the updated parameters
   within 2·lr + 1e-5 · max|p|: Adam's first step moves each weight by
   lr · g / (|g| + eps), so an element whose gradient is near 0 and
   differs in its last bits between the packages can move ±lr the other
@@ -48,20 +51,39 @@ from repro_torch.train.train_step import _loss_fn
 
 torch.set_num_threads(1)
 
-ARCHS = ["internlm2-1.8b", "gemma2-27b", "phi3.5-moe-42b-a6.6b",
-         "llava-next-mistral-7b"]
+TRANSFORMER_ARCHS = ["internlm2-1.8b", "gemma2-27b", "phi3.5-moe-42b-a6.6b",
+                     "llava-next-mistral-7b"]
+FAMILY_ARCHS = ["rwkv6-1.6b", "zamba2-7b", "whisper-base"]
+ARCHS = TRANSFORMER_ARCHS + FAMILY_ARCHS
+# the recurrent families' chunk: one sub-block of chunked_gla (whose
+# off-diagonal pairs and backward tests/test_torch_gla.py holds), two
+# chunks of the 32-token batch; it halves the reference's compile
+FAMILY_CHUNK = 16
 F32 = 1e-5
 BF16 = 5e-2
+# leaves whose gradient is a float32 residual, their mu held to 1e-5 of the
+# model's largest mu rather than their own: an attention key bias's
+# gradient is zero in exact arithmetic (a softmax is invariant to a shift
+# of one query's logits), so both packages hold rounding noise there
+# (whisper, ≈ 1e-9 of the largest); Mamba2's decay parameters a_log and
+# dt_bias sum cancelling terms over positions through exp(cumulative
+# log-decay) factors, whose float32 cumsums the two packages associate in
+# other orders (2-15% of the largest)
+RESIDUAL_GRADS = ("bk", "a_log", "dt_bias")
 
 
 def _configs(arch, dtype, **kw):
     if dtype == "float32":
         kw["compute_dtype"] = "float32"
+    if arch in FAMILY_ARCHS:
+        kw.setdefault("ssm_chunk", FAMILY_CHUNK)
     return (dataclasses.replace(rconfigs.get_smoke_config(arch), **kw),
             dataclasses.replace(tconfigs.get_smoke_config(arch), **kw))
 
 
 def _batch(cfg, b=2, s=32, seed=1, ones=False):
+    """Tokens, labels and mask (llava: image embeddings before the text;
+    whisper: 48 frames and the tokens as the decoder's)."""
     r = np.random.default_rng(seed)
     st = s + cfg.n_image_tokens
     batch = {"tokens": r.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
@@ -71,6 +93,10 @@ def _batch(cfg, b=2, s=32, seed=1, ones=False):
     if cfg.n_image_tokens:
         batch["extra_embeds"] = r.normal(
             0, 1, (b, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["dec_tokens"] = batch.pop("tokens")
+        batch["frames"] = r.normal(0, 1, (b, 48, cfg.d_model)).astype(
+            np.float32)
     return batch
 
 
@@ -104,8 +130,9 @@ def _ref_named(tree, cfg):
             interop.model_params(tree, cfg, device="cpu").named_parameters()}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch, dtype", [
+    (a, d) for a in TRANSFORMER_ARCHS for d in ("float32", "bfloat16")] + [
+    (a, "float32") for a in FAMILY_ARCHS])
 def test_train_step_matches_the_reference(arch, dtype):
     rc, tc, rm, tm, rs, ts = _start(arch, dtype)
     rb, tb = _both(_batch(tc))
@@ -128,8 +155,13 @@ def test_train_step_matches_the_reference(arch, dtype):
         err = np.abs(_np(p) - _np(want_p[n])).max()
         assert err <= 2 * lr + F32 * np.abs(_np(want_p[n])).max(), n
     want_mu = _ref_named(rs2["opt"]["mu"], tc)
+    top = max(np.abs(_np(m)).max() for m in want_mu.values())
     for n, mu in ts2["opt"]["mu"].items():
-        assert _rel(mu, want_mu[n]) <= F32, n
+        if n.rpartition(".")[2] in RESIDUAL_GRADS:
+            err = np.abs(_np(mu) - _np(want_mu[n])).max()
+            assert err <= F32 * top, n
+        else:
+            assert _rel(mu, want_mu[n]) <= F32, n
 
 
 def _layerwise(rc, tc, tm, rparams, rb):
@@ -236,8 +268,13 @@ def test_microbatches_match_the_reference_and_one_batch(arch):
     for k in ("loss", "grad_norm"):
         assert _rel(tmet[k], rmet[k]) <= F32, k
     want_mu = _ref_named(rs2["opt"]["mu"], tc)
+    top = max(np.abs(_np(m)).max() for m in want_mu.values())
     for n, mu in ts2["opt"]["mu"].items():
-        assert _rel(mu, want_mu[n]) <= F32, n
+        if n.rpartition(".")[2] in RESIDUAL_GRADS:
+            err = np.abs(_np(mu) - _np(want_mu[n])).max()
+            assert err <= F32 * top, n
+        else:
+            assert _rel(mu, want_mu[n]) <= F32, n
     two = interop.train_state(rs, tc, device="cpu")
     ts2, tmet = make_train_step(tm, TrainConfig(microbatches=2,
                                                 aux_loss_weight=0.0))(two, tb)

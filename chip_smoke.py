@@ -118,6 +118,17 @@ kernels from ``src/repro_torch/kernels/csrc``, then:
            against forward_train, float32 against the CPU, dec_pos read
            past its 8192 rows (the clamp) on the card and the CPU, and
            repro_torch.launch.train --arch whisper-base for 5 steps
+  phase 17 sharded training and the dry run (no fit kernel runs): (a)
+           15b's launcher command with --model-parallel 1 under a 1-rank
+           NCCL group, every leaf a DTensor on the (1, 1) mesh, its 20
+           losses against 15b's (1e-4 relative); a checkpoint round trip
+           on the mesh at 15a's 2-layer cut (restore(..., shardings=)
+           into another seed's sharded state, the replay bit-equal); (c)
+           repro_torch.launch.dryrun on 256 fake ranks
+           (internlm2-1.8b train_4k, qwen1.5-4b decode_32k at 16 x 16:
+           state bytes, peak, FLOPs and collective bytes per rank) and on
+           one (15c's step: its state bytes equal the card's state, its
+           FLOPs 15c's roofline.analyze count, its peak beside the card's)
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure, or when
@@ -466,6 +477,7 @@ def main() -> int:
     launches14, zoo_out = phase14(ctx)
     launches15, train_out = phase15(ctx)
     launches16, family_out = phase16(ctx)
+    launches17, shard_out = phase17(ctx, train_out)
 
     # ----------------------------------------------------------------- report
     replaces = {   # the TPU kernel bodies in the JAX reference
@@ -485,7 +497,7 @@ def main() -> int:
                                           launches9, launches10, launches11,
                                           launches12, launches13,
                                           launches14, launches15,
-                                          launches16))
+                                          launches16, launches17))
                 for k in launches2}
     kernels = []
     for name in ("moments_plain", "moments_packed", "moments_packed_ring",
@@ -529,7 +541,8 @@ def main() -> int:
         f"{json.dumps(async_out)}; phase13 mesh {json.dumps(mesh_out)}; "
         f"phase14 zoo {json.dumps(zoo_out)}; phase15 train "
         f"{json.dumps(train_out)}; phase16 families "
-        f"{json.dumps(family_out)}; copy "
+        f"{json.dumps(family_out)}; phase17 sharded "
+        f"{json.dumps(shard_out)}; copy "
         f"{copy_bw / 1e9:.1f} GB/s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -3204,6 +3217,281 @@ def phase16(c):
     return launches, out
 
 
+# ---------------------------------------------------------------- phase 17
+SHARD_TIMEOUT = 400           # 17c's dry runs, each
+# 17c: the dry run's cells at 16 × 16 (fake ranks), then 15c's step on a
+# (1, 1) mesh
+SHARD_DRYRUN = (("internlm2-1.8b", "train_4k"), ("qwen1.5-4b", "decode_32k"))
+
+
+def _shard_group(c, store):
+    """A 1-rank group: NCCL on the card (gloo in a CPU rehearsal)."""
+    import torch.distributed as dist
+    on_card = c["dev"].type == "cuda"
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            store=dist.FileStore(store, 1), rank=0,
+                            world_size=1, timeout=timedelta(seconds=300))
+
+
+def _shard_launcher(c, losses_15b, wall_15b):
+    """17a: 15b's launcher command with --model-parallel 1 under a 1-rank
+    NCCL group: every leaf a DTensor on the (1, 1) mesh; the losses
+    against 15b's unsharded run (15a's rule: 1e-4 relative), the host
+    clock's ms per step beside 15b's (both runs' wall time over 20 steps,
+    the first step's set-up included)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import train as train_lib
+    torch, dev = c["torch"], c["dev"]
+    with tempfile.TemporaryDirectory() as tmp:
+        _shard_group(c, f"{tmp}/store")
+        try:
+            run = train_lib.run(["--arch", TRAIN_ARCH, "--steps", "20",
+                                 "--log-every", "5", "--device",
+                                 str(dev.type), "--model-parallel", "1"])
+            state = run.pop("state")
+            leaves = (list(state["params"].parameters())
+                      + list(state["opt"]["mu"].values())
+                      + list(state["opt"]["nu"].values())
+                      + [state["opt"]["count"], state["step"]])
+            require(all(isinstance(t, DTensor) for t in leaves),
+                    "17a: a state leaf is no DTensor")
+            mesh = tuple(run["mesh"].shape)
+            del state, leaves, run["monitor"]
+        finally:
+            dist.destroy_process_group()
+    losses = [run["losses"][s] for s in sorted(run["losses"])]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_15b))
+    require(len(losses) == len(losses_15b) == 20 and rel <= TRAIN_TOL_F32,
+            f"17a losses {losses} vs 15b {losses_15b}: rel {rel:.3e}")
+    out = {"mesh": mesh, "losses": losses, "max_rel_vs_15b": rel,
+           "bit_equal_15b": losses == list(losses_15b),
+           "wall_s": run["wall_s"],
+           "ms_per_step_host": run["wall_s"] / len(losses) * 1e3,
+           "ms_per_step_host_15b": wall_15b / len(losses) * 1e3}
+    log(f"phase17a {json.dumps(out)}")
+    return out
+
+
+def _shard_round_trip(c):
+    """17a's checkpoint round trip on 15a's 2-layer cut (a full-depth
+    state is ≈ 22 GB on disk): on the 1-rank mesh, save after 2 steps at
+    15b's batch, go on to 5, restore onto the mesh (``restore(...,
+    shardings=)``) into another seed's sharded state, replay 2-4:
+    bit-equal."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch import checkpoint, configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_model
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.train_step import shard_batch, state_shardings
+    dev = c["dev"]
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CUT_LAYERS)
+    model = get_model(cfg)
+    step_fn = make_train_step(model, TrainConfig())
+    with tempfile.TemporaryDirectory() as tmp:
+        _shard_group(c, f"{tmp}/store")
+        try:
+            mesh = mesh_lib.make_host_mesh(data=1, device_type=dev.type)
+            batches = [shard_batch(b, mesh) for b in
+                       _train_batches(c, cfg, TRAIN_RESUME, 5)]
+            state = init_train_state(model, TRAIN_SEED, device=dev,
+                                     mesh=mesh)
+            losses = []
+            for step, batch in enumerate(batches):
+                if step == 2:
+                    t0 = time.perf_counter()
+                    checkpoint.save(f"{tmp}/ckpt", 2, state)
+                    save_s = time.perf_counter() - t0
+                state, m = step_fn(state, batch)
+                losses.append(float(m["loss"].full_tensor()))
+            del state
+            _zoo_free(c)
+            t0 = time.perf_counter()
+            like = init_train_state(model, TRAIN_SEED + 1, device=dev,
+                                    mesh=mesh)
+            state = checkpoint.restore(
+                f"{tmp}/ckpt", 2, like,
+                shardings=state_shardings(model, mesh, like))
+            restore_s = time.perf_counter() - t0
+            require(int(state["step"].full_tensor()) == 2,
+                    "17a restored step")
+            replay = []
+            for batch in batches[2:]:
+                state, m = step_fn(state, batch)
+                replay.append(float(m["loss"].full_tensor()))
+            del state, like
+        finally:
+            dist.destroy_process_group()
+    require(replay == losses[2:],
+            f"17a replay {replay} vs {losses[2:]} not bit-equal")
+    out = {"n_layers": TRAIN_CUT_LAYERS, "losses": losses, "replay": replay,
+           "save_s": save_s, "restore_s": restore_s}
+    log(f"phase17a round trip {json.dumps(out)}")
+    return out
+
+
+def _children(argv_of, n, timeout, tag):
+    """``n`` child processes (``argv_of(i, tmp)``), each killed at
+    ``timeout`` or when another fails; returns (their directory, wall
+    seconds, each one's last output)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    tmp = tempfile.mkdtemp()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for i in range(n):
+        log_f = open(Path(tmp) / f"child{i}.log", "w+")
+        logs.append(log_f)
+        procs.append(subprocess.Popen(argv_of(i, tmp), env=env, stdout=log_f,
+                                      stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    tails = []
+    for i, (p, log_f) in enumerate(zip(procs, logs)):
+        log_f.seek(0)
+        tails.append(f"child {i} rc {p.returncode}:\n" + log_f.read()[-3000:])
+        log_f.close()
+    require(all(p.returncode == 0 for p in procs),
+            f"{tag} children failed:\n" + "\n".join(tails))
+    return tmp, time.perf_counter() - t0, tails
+
+
+def dryrun_child(what, out) -> int:
+    """One of 17c's dry runs (run as ``chip_smoke.py --dryrun``): a cell of
+    SHARD_DRYRUN at 16 × 16, or ("one") 15c's step on a (1, 1) mesh; writes
+    its meta (.json)."""
+    import logging
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import mesh as mesh_lib
+    logging.disable(logging.WARNING)       # DTensor's per-op advice
+    if what == "one":
+        mesh_lib.init_fake_process_group(1)
+        try:
+            mesh = mesh_lib.make_host_mesh(data=1, device_type="cpu")
+            b, s = TRAIN_WINDOW
+            _, meta = dr.lower_cell(TRAIN_ARCH,
+                                    ShapeConfig("train_8x1024", s, b, "train"),
+                                    mesh, microbatches=1)
+        finally:
+            dist.destroy_process_group()
+        results = [dict(meta, status="ok")]
+    else:
+        arch, shape = SHARD_DRYRUN[int(what)]
+        results = dr.run_cells([(arch, shape)], [False], exact=False)
+    with open(out, "w") as f:
+        json.dump(results, f, default=str)
+    return 0
+
+
+def _shard_dryrun(c, train_out):
+    """17c: the dry run's cells at 16 × 16 and 15c's step at (1, 1), in
+    child processes at once (a fake group is a process's default group):
+    the (1, 1) state bytes against the card's state, its FLOPs against
+    15c's ``roofline.analyze`` of the real step, its peak beside 15c's."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    from repro_torch.train import init_train_state
+    torch, dev = c["torch"], c["dev"]
+    me = str(Path(__file__).resolve())
+    whats = [str(i) for i in range(len(SHARD_DRYRUN))] + ["one"]
+    tmp, wall, _ = _children(
+        lambda i, d: [sys.executable, me, "--dryrun", whats[i],
+                         f"{d}/dry{i}.json"], len(whats), SHARD_TIMEOUT,
+        "phase17c")
+    res = []
+    for i in range(len(whats)):
+        with open(f"{tmp}/dry{i}.json") as f:
+            res.append(json.load(f)[0])
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {"wall_s": wall, "cells": {}}
+    keys = ("state_bytes_per_dev", "peak_memory_gb", "flops_per_dev",
+            "coll_breakdown", "coll_bytes_per_dev", "coll_by_site",
+            "lower_s", "dominant", "microbatches", "traced_microbatches")
+    for meta in res[:-1]:
+        require(meta["status"] == "ok", f"17c {meta}")
+        out["cells"][f"{meta['arch']} {meta['shape']} {meta['mesh']}"] = {
+            k: meta[k] for k in keys}
+    one = res[-1]
+    # the card's state: 15c's model drawn again, its storages' bytes and
+    # the allocator's growth
+    model = get_model(configs.get_config(TRAIN_ARCH))
+    c["sync"]()
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    state = init_train_state(model, TRAIN_SEED, device=dev)
+    c["sync"]()
+    grown = (torch.cuda.memory_allocated(dev) - before
+             if dev.type == "cuda" else 0)
+    leaves = (list(state["params"].parameters())
+              + list(state["opt"]["mu"].values())
+              + list(state["opt"]["nu"].values())
+              + [state["opt"]["count"], state["step"]])
+    card_bytes = sum(t.untyped_storage().nbytes() for t in leaves)
+    del state, leaves
+    _zoo_free(c)
+    c15 = train_out["15c"]
+    require(one["state_bytes_per_dev"] == card_bytes,
+            f"17c state bytes {one['state_bytes_per_dev']} vs card "
+            f"{card_bytes}")
+    require(one["flops_per_dev"] == c15["executed_flops"],
+            f"17c FLOPs {one['flops_per_dev']} vs 15c analyze "
+            f"{c15['executed_flops']}")
+    out["one_rank"] = {
+        "state_bytes": one["state_bytes_per_dev"],
+        "card_state_bytes": card_bytes, "card_allocated_growth": grown,
+        "flops": one["flops_per_dev"], "analyze_flops": c15["executed_flops"],
+        "peak_gb": one["peak_memory_gb"],
+        "card_peak_gb": c15["peak_memory_gb"],
+        "peak_over_card": (one["peak_memory_gb"] / c15["peak_memory_gb"]
+                           if c15["peak_memory_gb"] else None),
+        "lower_s": one["lower_s"]}
+    log(f"phase17c {json.dumps(out)}")
+    return out
+
+
+def phase17(c, train_out):
+    """Sharded training and the dry run (no fit kernel runs here).  There
+    is no 17b of gloo ranks sharing the card: gloo carries the plain c10d
+    all-gather and reduce-scatter of CUDA tensors, but DTensor's
+    functional collectives on them end the process (SIGSEGV, torch
+    2.11); the CPU tests hold the 4-rank meshes."""
+    K = c["K"]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {"17a": _shard_launcher(c, train_out["15b"]["losses"],
+                                  train_out["15b"]["wall_s"])}
+    _zoo_free(c)
+    out["17a_round_trip"] = _shard_round_trip(c)
+    _zoo_free(c)
+    out["17c"] = _shard_dryrun(c, train_out)
+    launches = K.launch_counts()
+    require(not any(launches.values()),
+            f"the sharded path launched a fit kernel: {launches}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase17 {out['wall_s']:.1f} s; fit-kernel launches {launches}")
+    return launches, out
+
+
 def _host_ms(torch, fn):
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -3216,4 +3504,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         r_, w_, store_, out_, dev_, n_ = sys.argv[2:8]
         sys.exit(mesh_rank(int(r_), int(w_), store_, out_, dev_, int(n_)))
+    if sys.argv[1:2] == ["--dryrun"]:
+        sys.exit(dryrun_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

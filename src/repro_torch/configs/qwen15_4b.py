@@ -6,9 +6,9 @@ CONFIG = ModelConfig(
     arch="qwen1.5-4b", family="dense",
     n_layers=40, d_model=2560, n_heads=20, n_kv_heads=20, d_ff=6912,
     vocab_size=151936, use_qkv_bias=True, rope_theta=5000000.0,
-    # 20 heads do not divide a 16-way tensor-parallel axis: the
-    # reference's sharded runs shard attention over the query sequence
-    # instead (the port has no sharding yet, so the flag is carried only)
+    # 20 heads do not divide a 16-way tensor-parallel axis: under a mesh
+    # attention's queries are sharded over the sequence on "model" instead
+    # (attention._qkv's constrain)
     attn_seq_shard=True)
 
 SMOKE = dataclasses.replace(

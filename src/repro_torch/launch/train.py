@@ -9,6 +9,16 @@ periodic checkpointing with atomic commit + GC, and crash-resume.
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --steps 8 --ckpt-dir /tmp/ckpt --ckpt-every 4
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --smoke --device cpu --model-parallel 2 --steps 8
+
+Under a process group (``torchrun``'s environment, from which the launcher
+starts one: NCCL on CUDA, gloo for ``--device cpu``; or one the caller
+started) the state is sharded on ``make_host_mesh(model=N)`` by
+``train_state_specs`` and ``tree_shardings``, every leaf a DTensor; each
+rank draws the global batch from the pipeline and keeps its data-axis
+block, and a resume restores onto the mesh.  Without one, and with
+``--model-parallel 1``, it trains unsharded on one device.
 
 A resumed run restarts the pipeline at the checkpoint's step: the
 pipeline yields one global batch per step whatever ``--microbatches`` is.
@@ -16,6 +26,7 @@ pipeline yields one global batch per step whatever ``--microbatches`` is.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -24,9 +35,11 @@ import torch
 from repro_torch import checkpoint, configs
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import get_model
 from repro_torch.train import (AdamWConfig, LossCurveMonitor, TrainConfig,
                                init_train_state, make_train_step)
+from repro_torch.train.train_step import shard_batch, state_shardings
 
 
 def build(args):
@@ -86,32 +99,70 @@ def _audio_batch(cfg, batch, seq_len, device):
             "loss_mask": batch["loss_mask"]}
 
 
+def _process_group(dev) -> bool:
+    """Whether this run is one rank of a process group: one the caller
+    started, or one this launcher starts from ``torchrun``'s environment
+    (NCCL on CUDA, gloo on the CPU; no other backend is tried)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return True
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return True
+
+
+def _host(x) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor gathered whole: collective)."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def run(argv=None) -> dict:
     """Parse ``argv`` and train; returns the run's per-step losses
     (``{step: loss}``), its final state and monitor, the step it started
-    from and its host-clock wall time."""
+    from, its host-clock wall time and its mesh (None unsharded)."""
     args = parser().parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs sharding/rules.py and multi-card "
-            "training: ROADMAP.md Queue 1 item 15 step 5")
     cfg, model, tc = build(args)
     dev = resolve_device(args.device)
-    print(f"[train] arch={cfg.arch} device={dev} "
-          f"params≈{cfg.param_count()/1e6:.1f}M")
+    mesh = None
+    if _process_group(dev):
+        import torch.distributed as dist
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(dev)
+        mesh = mesh_lib.make_host_mesh(model=args.model_parallel,
+                                       device_type=dev.type)
+        rank0 = dist.get_rank() == 0
+    elif args.model_parallel > 1:
+        raise RuntimeError(
+            f"--model-parallel {args.model_parallel} shards the state over "
+            f"a process group; start one rank per device with torchrun, "
+            f"e.g. torchrun --nproc-per-node {2 * args.model_parallel} -m "
+            f"repro_torch.launch.train --model-parallel "
+            f"{args.model_parallel} ...")
+    else:
+        rank0 = True
+    say = print if rank0 else (lambda *a, **k: None)
+    layout = ("" if mesh is None else
+              f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    say(f"[train] arch={cfg.arch} device={dev}{layout} "
+        f"params≈{cfg.param_count()/1e6:.1f}M")
 
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                       global_batch=args.global_batch)
     pipe = TokenPipeline(dcfg, device=dev)
 
     # seeded from --steps, as the reference launcher seeds its state
-    state = init_train_state(model, args.steps, device=dev)
+    state = init_train_state(model, args.steps, device=dev, mesh=mesh)
     start_step = 0
     if args.ckpt_dir:
         last = checkpoint.latest_step(args.ckpt_dir)
         if last is not None:
-            print(f"[train] resuming from step {last}")
-            state = checkpoint.restore(args.ckpt_dir, last, state)
+            say(f"[train] resuming from step {last}")
+            sh = None if mesh is None else state_shardings(model, mesh, state)
+            state = checkpoint.restore(args.ckpt_dir, last, state,
+                                       shardings=sh)
             start_step = last
             pipe.restore({"batch_idx": last})
 
@@ -127,8 +178,10 @@ def run(argv=None) -> dict:
             batch = _vlm_batch(cfg, batch, dev)
         elif cfg.family == "audio":
             batch = _audio_batch(cfg, batch, args.seq_len, dev)
+        if mesh is not None:
+            batch = shard_batch(batch, mesh, tc.microbatches)
         state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])
+        loss = float(_host(metrics["loss"]))
         losses[step] = loss
         monitor.observe(step, loss)
 
@@ -143,18 +196,20 @@ def run(argv=None) -> dict:
                 if args.target_loss:
                     eta = monitor.eta_to(args.target_loss, step)
                     extras += f" eta_steps={eta}"
-            print(f"[train] step {step} loss={loss:.4f} "
-                  f"gnorm={float(metrics['grad_norm']):.3f} "
-                  f"({dt:.1f}s){extras}", flush=True)
+            gnorm = float(_host(metrics["grad_norm"]))
+            say(f"[train] step {step} loss={loss:.4f} gnorm={gnorm:.3f} "
+                f"({dt:.1f}s){extras}", flush=True)
 
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             checkpoint.save(args.ckpt_dir, step + 1, state)
-            checkpoint.gc_old(args.ckpt_dir, keep=3)
-            print(f"[train] checkpointed step {step + 1}", flush=True)
+            if rank0:
+                checkpoint.gc_old(args.ckpt_dir, keep=3)
+            say(f"[train] checkpointed step {step + 1}", flush=True)
 
-    print(f"[train] done. final loss {loss:.4f}")
+    say(f"[train] done. final loss {loss:.4f}")
     return {"losses": losses, "state": state, "monitor": monitor,
-            "start_step": start_step, "wall_s": time.perf_counter() - t0}
+            "start_step": start_step, "wall_s": time.perf_counter() - t0,
+            "mesh": mesh}
 
 
 def main(argv=None) -> int:

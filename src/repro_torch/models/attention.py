@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import common as cm
+from repro_torch.sharding.rules import constrain
 
 NEG_INF = -2.3819763e38  # large negative, bf16-safe (matches gemma impls)
 
@@ -39,8 +40,8 @@ class AttnConfig:
     logit_softcap: float | None = None   # gemma2: 50.0
     query_scale: float | None = None     # default 1/sqrt(head_dim)
     use_rope: bool = True                # whisper uses absolute pos instead
-    # the reference shards the query sequence over its tensor-parallel axis
-    # when the heads do not divide it; carried, unused without a mesh
+    # shard the query sequence over the tensor-parallel axis (under a mesh)
+    # instead of the heads, for head counts that do not divide it
     seq_shard: bool = False
 
 
@@ -74,10 +75,43 @@ def specs(cfg: AttnConfig):
     return s
 
 
+def _project(x, w, heads_axis):
+    """x (b, s, d) @ w (d, h, hd) -> (b, s, h, hd) as one product over the
+    merged (h, hd) columns, the product ``einsum("bsd,dhk->bshk")`` lowers
+    to (the same bits).  Under a mesh the merged columns keep a shard only
+    where the heads divide it, so the split back into (h, hd) is even:
+    DTensor may shard the merged columns anywhere, and cannot split them
+    unevenly.  The weight is taken in the base layout (d over the data
+    axes, the heads over "model" where they divide it, head_dim whole):
+    a head_dim shard (the decode rules' fallback) would leave the merged
+    columns a strided shard, which the product has no strategy for."""
+    b, s, _ = x.shape
+    d, h, hd = w.shape
+    w = constrain(w.to(x.dtype), "embed", heads_axis, None)
+    y = torch.einsum("bsd,dn->bsn", x, w.reshape(d, h * hd))
+    y = constrain(y, "batch", None, heads_axis, dims=(b, s, h))
+    # (the same layout again: the gradient reaches the split contiguous)
+    return constrain(y.reshape(b, s, h, hd), "batch", None, heads_axis,
+                     None)
+
+
+def output_projection(out, wo):
+    """out (b, s, h, hd) @ wo (h, hd, d) -> (b, s, d) as one product over
+    the merged (h, hd) rows, the product ``einsum("bshk,hkd->bsd")``
+    lowers to (the same bits).  Under a mesh the merged activations keep a
+    head shard only where the heads divide it, in both directions: the
+    gradient's split back into (h, hd) must be even too."""
+    b, s, h, hd = out.shape
+    o = constrain(out.reshape(b, s, h * hd), "batch", None, "q_heads",
+                  dims=(b, s, h))
+    w = constrain(wo.to(out.dtype), "q_heads", None, "embed")
+    return torch.einsum("bsn,nd->bsd", o, w.reshape(h * hd, w.shape[-1]))
+
+
 def _qkv(p, cfg: AttnConfig, x, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
+    q = _project(x, p.wq, "q_heads")
+    k = _project(x, p.wk, "kv_heads")
+    v = _project(x, p.wv, "kv_heads")
     if cfg.use_bias:
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
@@ -85,11 +119,24 @@ def _qkv(p, cfg: AttnConfig, x, positions):
     if cfg.use_rope:
         q = cm.apply_rope(q, positions, cfg.rope_theta)
         k = cm.apply_rope(k, positions, cfg.rope_theta)
+    # pin the layout: batch over the data axes, heads over "model" where
+    # they divide it; seq_shard puts the query sequence there instead
+    if cfg.seq_shard:
+        q = constrain(q, "batch", "q_seq", None, None,
+                      overrides={"q_seq": "model"})
+    else:
+        q = constrain(q, "batch", None, "q_heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
 def _sdpa(cfg: AttnConfig, q, k, v, mask):
     """q: (b, sq, h, hd); k/v: (b, skv, kh, hd); mask: (b|1, 1, sq, skv)."""
+    if _is_dtensor(q):
+        return _on_local_blocks(
+            cfg, q, k, v, lambda ql, kl, vl, rows, qoff: _sdpa(
+                cfg, ql, kl, vl, _local_mask(mask, rows, qoff, ql.shape[1])))
     b, sq, h, hd = q.shape
     kh = k.shape[2]
     group = h // kh
@@ -110,6 +157,12 @@ def _sdpa_chunked(cfg: AttnConfig, q, k, v, *, window: int | None,
     """Query-chunked attention: the peak logits buffer is (b, kh, g,
     q_chunk, skv) instead of O(sq·skv).  Each chunk sees the full K/V with
     its own causal/window mask slice."""
+    if _is_dtensor(q):
+        return _on_local_blocks(
+            cfg, q, k, v, lambda ql, kl, vl, rows, qoff: _sdpa_chunked(
+                cfg, ql, kl, vl, window=window,
+                q_chunk=min(q_chunk, ql.shape[1]),   # a sequence shard
+                offset=offset + qoff, causal=causal))
     b, sq, h, hd = q.shape
     assert sq % q_chunk == 0, (sq, q_chunk)
     outs = []
@@ -123,6 +176,69 @@ def _sdpa_chunked(cfg: AttnConfig, q, k, v, *, window: int | None,
                               device=q.device)
         outs.append(_sdpa(cfg, qi, k, v, mask))
     return torch.cat(outs, dim=1)
+
+
+# ------------------------------------------------------- under a mesh
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _on_local_blocks(cfg: AttnConfig, q, k, v, fn):
+    """Attention of DTensors run on each rank's own blocks: every (batch
+    row, head) pair attends independently, so once q, k and v are laid out
+    with the batch over the data axes and the heads over "model" (where the
+    kv heads divide it; else, with ``seq_shard``, the query sequence; else
+    replicated), ``fn(q, k, v, batch rows, query offset)`` on the local
+    blocks computes this rank's block of the output exactly.  DTensor's
+    own strategies would shard the products' merged dimensions in ways the
+    splits after them cannot take.  The redistributes are ``constrain``s;
+    ``to_local``/``from_local`` carry the gradients."""
+    from torch.distributed.tensor import Partial, Shard
+    from repro_torch.sharding.rules import dtensor_of, spec_for
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    mesh = q.device_mesh
+    if spec_for(mesh, ("kv_heads",), dims=(kh,))[0] is not None:
+        q = constrain(q, "batch", None, "q_heads", None)
+    elif cfg.seq_shard:
+        q = constrain(q, "batch", "q_seq", None, None,
+                      overrides={"q_seq": "model"})
+    else:
+        q = constrain(q, "batch", None, None, None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
+    rows = _block_range(mesh, q.placements, 0, b)
+    qoff = _block_range(mesh, q.placements, 1, sq)[0]
+    # where the queries are split and the keys are not (a query-sequence
+    # shard), each rank's key and value gradients are its queries' share:
+    # partial sums over that mesh dimension
+    kv_grad = [Partial() if isinstance(qp, Shard) and not
+               isinstance(kp, Shard) else kp
+               for qp, kp in zip(q.placements, k.placements)]
+    out = fn(q.to_local(), k.to_local(grad_placements=kv_grad),
+             v.to_local(grad_placements=kv_grad), rows, qoff)
+    return dtensor_of(out, mesh, q.placements, (b, sq, h, hd))
+
+
+def _block_range(mesh, placements, dim, size):
+    """(start, stop) of this rank's block of tensor dim ``dim`` (of global
+    ``size``) under ``placements`` (whole, or split major to minor over
+    the mesh dims that shard it)."""
+    from torch.distributed.tensor import Shard
+    start, n = 0, size
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n //= mesh.size(i)
+            start += mesh.get_local_rank(i) * n
+    return start, start + n
+
+
+def _local_mask(mask, rows, qoff, sq_local):
+    """The rows of a global (b|1, 1, sq, skv) mask for a local block."""
+    if mask.shape[0] > 1:
+        mask = mask[rows[0]:rows[1]]
+    return mask[:, :, qoff:qoff + sq_local]
 
 
 def causal_mask(sq, skv, *, window: int | None = None, offset: int = 0,
@@ -147,7 +263,7 @@ def attend_train(p, cfg: AttnConfig, x, positions, *,
     else:
         out = _sdpa(cfg, q, k, v,
                     causal_mask(sq, sq, window=window, device=x.device))
-    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
+    return output_projection(out, p.wo)
 
 
 # ------------------------------------------------------------------ KV cache
@@ -179,7 +295,7 @@ def attend_prefill(p, cfg: AttnConfig, x, positions, cache, *,
     else:
         out = _sdpa(cfg, q, k, v,
                     causal_mask(sq, sq, window=window, device=x.device))
-    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype)), cache
+    return output_projection(out, p.wo), cache
 
 
 def attend_decode(p, cfg: AttnConfig, x, cache, cache_len: int, *,
@@ -203,15 +319,15 @@ def attend_decode(p, cfg: AttnConfig, x, cache, cache_len: int, *,
         valid &= kpos > cache_len - window
     mask = valid[:, None, None, :].expand(b, 1, 1, skv)
     out = _sdpa(cfg, q, ck.to(q.dtype), cv.to(q.dtype), mask)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype)), cache
+    return output_projection(out, p.wo), cache
 
 
 # -------------------------------------------------------- cross attention
 def attend_cross(p, cfg: AttnConfig, x, kv_feats, kv_mask=None):
     """Whisper decoder cross-attention. kv_feats: (b, s_enc, d)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", kv_feats, p.wk.to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", kv_feats, p.wv.to(x.dtype))
+    q = _project(x, p.wq, "q_heads")
+    k = _project(kv_feats, p.wk.to(x.dtype), "kv_heads")
+    v = _project(kv_feats, p.wv.to(x.dtype), "kv_heads")
     if cfg.use_bias:
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
@@ -222,4 +338,4 @@ def attend_cross(p, cfg: AttnConfig, x, kv_feats, kv_mask=None):
     else:
         mask = kv_mask[:, None, None, :].expand(b, 1, sq, skv)
     out = _sdpa(cfg, q, k, v, mask)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
+    return output_projection(out, p.wo)

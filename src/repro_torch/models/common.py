@@ -125,7 +125,35 @@ def embed_specs():
 
 
 def embed_lookup(p, ids):
+    if _is_dtensor(p.table) or _is_dtensor(ids):
+        return _embed_lookup_blocks(p.table, ids)
     return p.table[ids]
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _embed_lookup_blocks(table, ids):
+    """The lookup under a mesh, on each rank's own rows of ``ids`` against
+    the whole table (gathered over its vocab shards): the gather
+    ``table[ids]`` computes and its backward, whose sharding rule for the
+    table's gradient some torch releases get wrong (a negative shard dim).
+    Each rank's table gradient covers its own rows only, so it is a
+    partial sum over the mesh dimensions the rows are split over."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.sharding.rules import constrain, dtensor_of
+    table = constrain(table, None, None)
+    mesh = table.device_mesh
+    if not _is_dtensor(ids):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    grad = [Partial() if isinstance(pl, Shard) else Replicate()
+            for pl in ids.placements]
+    out = table.to_local(grad_placements=grad)[ids.to_local()]
+    return dtensor_of(out, mesh, ids.placements,
+                      tuple(ids.shape) + (table.shape[-1],))
 
 
 def embed_logits(p, x, *, softcap: float | None = None):

@@ -26,6 +26,7 @@ from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import transformer
 from repro_torch.models.transformer import torch_dtype
+from repro_torch.sharding.rules import constrain, constrain_state
 
 DEC_RATIO_TRAIN = 4     # dec tokens = seq_len // 4 for train cells
 DEC_RATIO_PREFILL = 32
@@ -161,8 +162,9 @@ def _enc_layer(acfg, p, h):
         mask = torch.ones((1, 1, x.shape[1], x.shape[1]), dtype=torch.bool,
                           device=x.device)
         a = attn._sdpa(acfg, q, k, v, mask)
-    h = h + torch.einsum("bshk,hkd->bsd", a, p.attn.wo.to(x.dtype))
-    return h + mlp_lib.plain_apply(p.mlp, cm.layernorm(p.ln2, h))
+    h = h + attn.output_projection(a, p.attn.wo.to(x.dtype))
+    h = h + mlp_lib.plain_apply(p.mlp, cm.layernorm(p.ln2, h))
+    return constrain(h, "batch", None, None)
 
 
 def _layers(cfg, layers, h, fn):
@@ -197,7 +199,8 @@ def _dec_block(p, acfg, h, positions, enc_out, self_mode, cache=None,
     h = h + a
     h = h + attn.attend_cross(p.cross_attn, acfg,
                               cm.layernorm(p.ln_cross, h), enc_out)
-    return h + mlp_lib.plain_apply(p.mlp, cm.layernorm(p.ln2, h))
+    h = h + mlp_lib.plain_apply(p.mlp, cm.layernorm(p.ln2, h))
+    return constrain(h, "batch", None, None)
 
 
 def _dec_in(params, cfg, tokens):
@@ -252,8 +255,9 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int,
     h, positions = _dec_in(params, cfg, batch["dec_tokens"])
     b, s = batch["dec_tokens"].shape
     acfg = _attn_cfg(cfg, True)
-    state = init_decode_state(cfg, b, max_len, enc_out.shape[1],
-                              cache_dtype, h.device)
+    state = constrain_state(
+        init_decode_state(cfg, b, max_len, enc_out.shape[1], cache_dtype,
+                          h.device), decode_state_specs(cfg))
     for i, p in enumerate(params.dec_layers):
         h = _dec_block(p, acfg, h, positions, enc_out, "prefill",
                        cache=_layer_cache(state, i))

@@ -32,6 +32,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import constrain
+
 SUB = 16  # sub-block (secondary chunk) size
 
 
@@ -98,8 +100,10 @@ def chunked_gla(q, k, v, logw, *, u=None, initial_state=None,
     f32 = torch.float32
     lw = logw.to(f32).expand(b, h, t, dk)
 
-    resh = lambda a, d: a.to(f32).reshape(b, h, nc, chunk, d)
-    qc, kc, vc, lwc = resh(q, dk), resh(k, dk), resh(v, dv), resh(lw, dk)
+    con = lambda a: constrain(a.to(f32), "batch", "heads", None, None)
+    resh = lambda a, d: a.reshape(b, h, nc, chunk, d)
+    qc, kc, vc = resh(con(q), dk), resh(con(k), dk), resh(con(v), dv)
+    lwc = resh(lw, dk)
     cum = torch.cumsum(lwc, dim=-2)                    # inclusive cumsum
     total = cum[..., -1:, :]                           # (B, H, nc, 1, dk)
 

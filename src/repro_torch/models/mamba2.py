@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import common as cm
 from repro_torch.models import gla
+from repro_torch.sharding.rules import constrain
 
 _FLOAT32_LEAVES = ("a_log", "dt_bias")
 
@@ -112,7 +113,7 @@ def _causal_conv(cfg: Mamba2Config, xbc, conv_w, conv_b, conv_state=None):
 
 def _ssd_inputs(cfg: Mamba2Config, p, xbc, dt):
     di, ds, nh, hd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
-    x = xbc[..., :di]
+    x = constrain(xbc[..., :di], "batch", None, "mlp")
     bmat = xbc[..., di:di + ds]
     cmat = xbc[..., di + ds:]
     b, s, _ = x.shape
@@ -122,7 +123,8 @@ def _ssd_inputs(cfg: Mamba2Config, p, xbc, dt):
                          torch.zeros((), dtype=f32, device=dt.device))
     a = -torch.exp(p.a_log.to(f32))                               # (nh,)
     logw = (dt * a).transpose(1, 2)[..., None]                    # (b,nh,s,1)
-    xh = x.reshape(b, s, nh, hd).transpose(1, 2)                  # (b,nh,s,hd)
+    xh = constrain(x.reshape(b, s, nh, hd).transpose(1, 2),
+                   "batch", "heads", None, None)                  # (b,nh,s,hd)
     # dt scales the input (ZOH discretization): k = B, v = dt*x
     v = xh * dt.transpose(1, 2)[..., None].to(xh.dtype)
     k = bmat[:, None].expand(b, nh, s, ds).to(xh.dtype)

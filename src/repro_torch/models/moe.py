@@ -32,6 +32,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from repro_torch.models import common as cm
+from repro_torch.sharding.rules import constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +74,17 @@ def group_capacity(cfg: MoEConfig, group: int) -> int:
 
 def route(probs, top_k: int):
     """(gate_idx, gate_vals) of the top_k experts on floor(16·p), exact
-    ties to the lower index, gates renormalized."""
+    ties to the lower index, gates renormalized.  A DTensor (its expert
+    axis whole) is routed on each rank's own rows: DTensor's top-k keys
+    its sharding cache without ``k``, so two configs of one expert count
+    and other ``top_k`` in one process would read each other's shapes."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(probs, DTensor):
+        from repro_torch.sharding.rules import dtensor_of
+        idx, vals = route(probs.to_local(), top_k)
+        shape = tuple(probs.shape[:-1]) + (top_k,)
+        return tuple(dtensor_of(t, probs.device_mesh, probs.placements,
+                                shape) for t in (idx, vals))
     e = probs.shape[-1]
     qsel = torch.floor(probs * 16.0)
     lower_first = (e - 1) - torch.arange(e, device=probs.device,
@@ -92,9 +103,12 @@ def apply(p, cfg: MoEConfig, x):
     g = b * (s // sg)
     cap = group_capacity(cfg, sg)
     e, k = cfg.n_experts, cfg.top_k
-    xt = x.reshape(g, sg, d)
+    xt = constrain(x.reshape(g, sg, d), "batch", None, None)
 
-    logits = torch.einsum("gsd,de->gse", xt.float(), p.router.float())
+    # the router's logits whole over the experts: the top-k and one-hot
+    # below take no sharded expert axis (DTensor has no strategy for them)
+    logits = constrain(torch.einsum("gsd,de->gse", xt.float(),
+                                    p.router.float()), "batch", None, None)
     probs = torch.softmax(logits, dim=-1)                     # (g,s,e)
     gate_idx, gate_vals = route(probs, k)                     # (g,s,k)
 
@@ -113,7 +127,8 @@ def apply(p, cfg: MoEConfig, x):
     disp = torch.einsum("gske,gskc->gsec",
                         (onehot * keep[..., None]).to(x.dtype),
                         slot.to(x.dtype))
-    expert_in = torch.einsum("gsec,gsd->egcd", disp, xt)      # (e,g,c,d)
+    expert_in = constrain(torch.einsum("gsec,gsd->egcd", disp, xt),
+                          "experts", "batch", None, None)     # (e,g,c,d)
 
     gate = torch.einsum("egcd,edf->egcf", expert_in, p.w_gate.to(x.dtype))
     up = torch.einsum("egcd,edf->egcf", expert_in, p.w_up.to(x.dtype))

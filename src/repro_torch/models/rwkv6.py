@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import common as cm
 from repro_torch.models import gla
+from repro_torch.sharding.rules import constrain
 
 _FLOAT32_LEAVES = ("decay_w0", "decay_a", "decay_b", "bonus")
 
@@ -141,7 +142,8 @@ def _time_mix_inputs(p, cfg: RWKV6Config, x, last=None):
     lora = torch.einsum("bsl,ld->bsd", torch.tanh(torch.einsum(
         "bsd,dl->bsl", xw.to(f32), p.decay_a.to(f32))), p.decay_b.to(f32))
     logw = -torch.exp(p.decay_w0.to(f32) + lora)
-    heads = lambda a: a.reshape(b, s, nh, hd).transpose(1, 2)
+    heads = lambda a: constrain(a.reshape(b, s, nh, hd).transpose(1, 2),
+                                "batch", "heads", None, None)
     return heads(r), heads(k), heads(v), g, heads(logw)
 
 

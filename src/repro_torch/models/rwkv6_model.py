@@ -18,6 +18,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
 from repro_torch.models import rwkv6
 from repro_torch.models.transformer import torch_dtype
+from repro_torch.sharding.rules import constrain_state
 
 
 def _cfg(cfg: ModelConfig) -> rwkv6.RWKV6Config:
@@ -135,7 +136,9 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int = 0,
     """Run the prompt from a zero state. Returns (logits of the last
     position, state with ``len`` = the prompt's length)."""
     h = _embed_in(params, cfg, tokens)
-    state = init_decode_state(cfg, tokens.shape[0], device=h.device)
+    state = constrain_state(
+        init_decode_state(cfg, tokens.shape[0], device=h.device),
+        decode_state_specs(cfg))
     rcfg = _cfg(cfg)
     h = cm.step_layers(params.layers, h, state["layers"],
                        lambda p, h, st: rwkv6.block_prefill(p, rcfg, h, st))

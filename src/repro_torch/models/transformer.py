@@ -40,6 +40,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.sharding.rules import constrain, constrain_state
 
 Q_CHUNK = 2048  # query chunking kicks in above this seq len (read per call)
 
@@ -203,7 +204,7 @@ def _ffn(cfg: ModelConfig, p, h):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.post_norms:
         m = _norm(cfg, p.ln2_post, m)
-    return h + m, aux
+    return constrain(h + m, "batch", None, None), aux
 
 
 def _attn_train(cfg: ModelConfig, p, h, positions, window):
@@ -213,7 +214,7 @@ def _attn_train(cfg: ModelConfig, p, h, positions, window):
                           q_chunk=_q_chunk(h.shape[1]))
     if cfg.post_norms:
         a = _norm(cfg, p.ln1_post, a)
-    return h + a
+    return constrain(h + a, "batch", None, None)
 
 
 def _embed_in(params, cfg: ModelConfig, tokens, extra_embeds):
@@ -224,7 +225,7 @@ def _embed_in(params, cfg: ModelConfig, tokens, extra_embeds):
                              device=h.device)
     if extra_embeds is not None:
         h = torch.cat([extra_embeds.to(dt), h], dim=1)
-    return h
+    return constrain(h, "batch", None, None)
 
 
 def _positions(b, s, device):
@@ -323,7 +324,9 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int,
     b, s, _ = h.shape
     positions = _positions(b, s, h.device)
     acfg = _attn_cfg(cfg)
-    state = init_decode_state(cfg, b, max_len, cache_dtype, h.device)
+    state = constrain_state(
+        init_decode_state(cfg, b, max_len, cache_dtype, h.device),
+        decode_state_specs(cfg))
     for i, (p, w) in enumerate(zip(params.layers, _layer_windows(cfg))):
         a, _ = attn.attend_prefill(
             p.attn, acfg, _norm(cfg, p.ln1, h), positions,

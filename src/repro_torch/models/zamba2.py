@@ -33,6 +33,7 @@ from repro_torch.models import mamba2
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import transformer
 from repro_torch.models.transformer import torch_dtype
+from repro_torch.sharding.rules import constrain, constrain_state
 
 
 def _m2cfg(cfg: ModelConfig) -> mamba2.Mamba2Config:
@@ -187,6 +188,7 @@ def _attn_out(sp, h, a):
 
 def _apply_shared_train(sp, cfg: ModelConfig, emb0, positions, h):
     """One shared-block application on the full sequence."""
+    h = constrain(h, "batch", None, None)
     xcat = torch.cat([h, emb0], dim=-1)
     a = attn.attend_train(sp.attn, _shared_attn_cfg(cfg),
                           cm.rmsnorm(sp.ln_attn, xcat), positions,
@@ -330,7 +332,9 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int,
     h = emb0
     b, s, _ = h.shape
     positions = transformer._positions(b, s, h.device)
-    state = init_decode_state(cfg, b, max_len, cache_dtype, h.device)
+    state = constrain_state(
+        init_decode_state(cfg, b, max_len, cache_dtype, h.device),
+        decode_state_specs(cfg))
     for gi, group in enumerate(params.blocks):
         mstates, kv = _group_state(state, gi)
         h = _apply_shared_prefill(_shared_params(params, cfg, gi), cfg, h,

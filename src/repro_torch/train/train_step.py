@@ -21,8 +21,11 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import use_mesh
 from repro_torch.models.registry import ModelAPI
 from repro_torch.models.transformer import torch_dtype
+from repro_torch.sharding import rules
+from repro_torch.sharding.rules import constrain
 from repro_torch.train import optimizer as opt_lib
 
 
@@ -36,8 +39,10 @@ class TrainConfig:
 
 def cross_entropy(logits, labels, loss_mask):
     """logits (B,S,V) any float dtype; labels (B,S) int; mask (B,S).
-    Returns (mean masked NLL, mean masked logsumexp²), float32."""
-    logits = logits.to(torch.float32)
+    Returns (mean masked NLL, mean masked logsumexp²), float32.  Under a
+    mesh the logits are gathered whole over the vocab first: DTensor has no
+    sharding strategy for the gold-label gather on a sharded vocab."""
+    logits = constrain(logits, "batch", None, None).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold
@@ -69,14 +74,68 @@ def _loss_fn(model: ModelAPI, tc: TrainConfig, params, batch):
     return loss, {"ce": ce, "aux": aux, "z": zsq}
 
 
-def init_train_state(model: ModelAPI, rng=0, device=None):
+def init_train_state(model: ModelAPI, rng=0, device=None, *, mesh=None,
+                     shardings=None):
     """``rng``: an int seed or a ``torch.Generator`` on ``device``
-    (``None`` means CUDA)."""
+    (``None`` means CUDA).
+
+    With ``mesh`` every leaf is a DTensor laid out by ``shardings``
+    (default: ``train_state_specs`` through ``rules.tree_shardings``).  The
+    parameters are drawn whole from the seed on every rank and then each
+    rank keeps its blocks, so a sharded run starts from the bits of a
+    single-process one; the AdamW moments take the parameters'
+    placements, ``count`` and ``step`` are replicated."""
     params = model.init_params(rng, dtype=torch_dtype(model.cfg.param_dtype),
                                device=resolve_device(device))
     dev = next(params.parameters()).device
-    return {"params": params, "opt": opt_lib.init_state(params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    state = {"params": params, "opt": opt_lib.init_state(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if mesh is None:
+        return state
+    if shardings is None:
+        shardings = rules.tree_shardings(mesh, train_state_specs(model),
+                                         state)
+    return rules.distribute_tree(state, shardings)
+
+
+def state_shardings(model: ModelAPI, mesh, state=None, *, overrides=None):
+    """The ``NamedSharding`` tree of a train state on ``mesh`` (of
+    ``state``, or of the abstract state), in the port's layout."""
+    return rules.tree_shardings(
+        mesh, train_state_specs(model),
+        abstract_train_state(model) if state is None else state,
+        overrides=overrides)
+
+
+def shard_batch(batch: dict, mesh, microbatches: int = 1) -> dict:
+    """The global batch (the same whole tensors on every rank) as DTensors
+    whose leading axis is split over the mesh's data axes.  Each rank's
+    block is ordered so that its ``microbatches`` consecutive slices, the
+    ones the train step takes, are its parts of the reference's
+    contiguous microbatches: global microbatch ``i`` (rows ``i·B/k`` to
+    ``(i+1)·B/k``) is then slice ``i`` of every rank.  A leaf whose batch
+    does not divide ``k`` times the data ranks is replicated."""
+    axes = rules.data_axes(mesh)
+    names = tuple(mesh.mesh_dim_names)
+    n, d = 1, 0
+    for a in axes:                    # this rank's row-major data index
+        i = names.index(a)
+        n *= mesh.size(i)
+        d = d * mesh.size(i) + mesh.get_local_rank(i)
+    k = microbatches
+    out = {}
+    for key, x in batch.items():
+        b = x.shape[0]
+        if b % (n * k):
+            out[key] = rules.replicated(mesh).distribute(x)
+            continue
+        rows = x.reshape((k, n, b // (n * k)) + tuple(x.shape[1:]))[:, d]
+        local = rows.reshape((b // n,) + tuple(x.shape[1:]))
+        out[key] = rules.dtensor_of(
+            local, mesh,
+            rules.placements(mesh, (axes,) + (None,) * (x.ndim - 1)),
+            x.shape)
+    return out
 
 
 def abstract_train_state(model: ModelAPI):
@@ -102,6 +161,13 @@ def make_train_step(model: ModelAPI, tc: TrainConfig):
     microbatches > 1 splits the batch's leading axis and accumulates
     float32 gradients over the splits in order (the reference's scan); the
     metrics then carry only loss, grad_norm and lr, as the reference's.
+
+    A state of DTensors (``init_train_state(..., mesh=)``) runs on its
+    mesh: the step makes it the ambient mesh (the models' ``constrain``
+    points read it) and takes plain tensors as replicated.  Each gradient
+    is redistributed to its parameter's placements, and a batch of
+    DTensors (``shard_batch``) is split into microbatches rank by rank,
+    each rank's block keeping its placements.
     """
 
     def grads_of(params, batch):
@@ -110,6 +176,7 @@ def make_train_step(model: ModelAPI, tc: TrainConfig):
             leaves = [p.detach().requires_grad_(True) for p in masters]
             loss, m = _loss_fn(model, tc, dict(zip(names, leaves)), batch)
             grads = torch.autograd.grad(loss, leaves)
+        grads = [_like(g, p) for g, p in zip(grads, leaves)]
         return (loss.detach(), {k: v.detach() for k, v in m.items()},
                 dict(zip(names, grads)))
 
@@ -118,15 +185,11 @@ def make_train_step(model: ModelAPI, tc: TrainConfig):
         if tc.microbatches > 1:
             k = tc.microbatches
 
-            def split(x):
-                return x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))
-
-            mb = {name: split(x) for name, x in batch.items()}
-            gsum = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+            mb = {name: _split(x, k) for name, x in batch.items()}
+            gsum = {n: torch.zeros_like(p, dtype=torch.float32)
                     for n, p in params.named_parameters()}
             loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=gsum[next(iter(gsum))].device)
+                                   device=next(iter(gsum.values())).device)
             for i in range(k):
                 loss, _, g = grads_of(params, {n: x[i]
                                                for n, x in mb.items()})
@@ -145,7 +208,37 @@ def make_train_step(model: ModelAPI, tc: TrainConfig):
         return {"params": params, "opt": opt,
                 "step": state["step"] + 1}, out
 
-    return step
+    def run(state, batch):
+        mesh = rules.mesh_of(state["params"])
+        if mesh is None:
+            return step(state, batch)
+        from torch.distributed.tensor.experimental import implicit_replication
+        with use_mesh(mesh), implicit_replication():
+            return step(state, batch)
+
+    return run
+
+
+def _like(g, p):
+    """The gradient ``g`` in the placements of its parameter ``p``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _split(x, k):
+    """``x``'s leading axis as ``k`` microbatches: a list of ``k`` tensors
+    (a DTensor: each rank's block split, the placements kept)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        local = x.to_local()
+        rows = local.shape[0] // k
+        shape = (x.shape[0] // k,) + tuple(x.shape[1:])
+        return [rules.dtensor_of(local[i * rows:(i + 1) * rows],
+                                 x.device_mesh, x.placements, shape)
+                for i in range(k)]
+    return x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))
 
 
 def make_eval_step(model: ModelAPI, tc: TrainConfig):

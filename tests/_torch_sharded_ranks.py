@@ -1,0 +1,275 @@
+"""The multi-rank sides of ``tests/test_torch_sharding.py`` and
+``tests/test_torch_sharded_train.py``.
+
+    python tests/_torch_sharded_ranks.py indices OUT.json
+    python tests/_torch_sharded_ranks.py rank GROUP RANK WORLD STORE OUT.npz
+
+``indices`` runs the JAX reference on 4 host devices (the caller sets
+``XLA_FLAGS=--xla_force_host_platform_device_count=4``): for each case of
+``PLACEMENT_CASES``, the block of the global array that
+``NamedSharding(make_mesh((2, 2)), P(*spec)).devices_indices_map`` gives
+the device at each mesh position, keyed by that position's rank
+(``row * 2 + column``).
+
+``rank`` is one of 4 gloo ranks of the port (``FileStore`` at STORE)
+running one GROUP of checks; rank 0 writes OUT.npz:
+
+* ``placements``: each case's ``distribute_tensor`` block of an arange
+  on the (2, 2) mesh, every rank's (gathered to rank 0);
+* ``train``: one train step of each family's smoke config (float32
+  compute) on meshes (4, 1), (2, 2) and (1, 4), from
+  ``init_train_state(model, SEED, mesh=)`` and ``shard_batch`` of
+  ``batch(cfg)``: loss, grad_norm, the whole parameters and mu after it;
+* ``launcher``: ``repro_torch.launch.train.run`` with ``--model-parallel
+  2`` for ``LAUNCH_STEPS`` steps (float32 compute): its losses;
+* ``resume``: internlm2's smoke state trained 2 steps on (4, 1), saved,
+  one more step (the unbroken run), then restored onto (2, 2) through
+  ``tree_shardings`` and stepped again from the saved state.
+
+The port's side imports neither jax nor ``repro``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+import tempfile
+from datetime import timedelta
+
+import numpy as np
+
+WORLD = 4
+SEED = 0
+TRAIN_ARCHS = ["internlm2-1.8b", "phi3.5-moe-42b-a6.6b",
+               "llava-next-mistral-7b", "rwkv6-1.6b", "zamba2-7b",
+               "whisper-base", "qwen1.5-4b"]
+# qwen1.5's smoke config with 2 heads: on (1, 4) they do not divide the
+# model axis, so its attention runs on query-sequence blocks
+# (attn_seq_shard), the layout its 20 heads take on 16 × 16
+VARIANTS = {"qwen1.5-4b": dict(n_heads=2, n_kv_heads=2)}
+MESHES = [(4, 1), (2, 2), (1, 4)]
+FAMILY_CHUNK = 16          # the recurrent families' chunk (two per batch)
+LAUNCH_STEPS = 5
+LAUNCH_ARGS = ["--smoke", "--device", "cpu", "--steps", str(LAUNCH_STEPS),
+               "--log-every", "100", "--global-batch", "8",
+               "--seq-len", "32"]
+RESUME_ARCH = "internlm2-1.8b"
+# (shape, spec) on the (2, 2) ("data", "model") mesh
+PLACEMENT_CASES = [
+    ((8, 6, 4), ("data", "model", None)),
+    ((8, 6, 4), ("model", None, "data")),
+    ((8, 6, 4), (("data", "model"), None, None)),
+    ((8, 6, 4), (None, None, ("data", "model"))),
+    ((8, 6, 4), (None, "data", None)),
+    ((8, 6), (None, None)),
+]
+
+
+def f32_of(cfg):
+    """``cfg`` at float32 compute (and the recurrent families' chunk)."""
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    if cfg.family in ("ssm", "hybrid", "audio"):
+        cfg = dataclasses.replace(cfg, ssm_chunk=FAMILY_CHUNK)
+    return cfg
+
+
+def f32_config(arch):
+    """The smoke config of ``arch`` at float32 compute (``VARIANTS``
+    applied)."""
+    from repro_torch import configs
+    return dataclasses.replace(f32_of(configs.get_smoke_config(arch)),
+                               **VARIANTS.get(arch, {}))
+
+
+def f32_smoke_getter(configs):
+    """A ``get_smoke_config`` giving the float32 configs, for the launcher
+    to read in place of ``configs.get_smoke_config``."""
+    orig = configs.get_smoke_config
+    return lambda arch: f32_of(orig(arch))
+
+
+def batch(cfg, b=8, s=32, seed=1):
+    """A global batch of numpy arrays (llava: image embeddings before the
+    text; whisper: 48 frames and the tokens as the decoder's)."""
+    r = np.random.default_rng(seed)
+    st = s + cfg.n_image_tokens
+    out = {"tokens": r.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+           "labels": r.integers(0, cfg.vocab_size, (b, st)).astype(np.int32),
+           "loss_mask": (r.random((b, st)) > 0.2).astype(np.float32)}
+    if cfg.n_image_tokens:
+        out["extra_embeds"] = r.normal(
+            0, 1, (b, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        out["dec_tokens"] = out.pop("tokens")
+        out["frames"] = r.normal(0, 1, (b, 48, cfg.d_model)).astype(
+            np.float32)
+    return out
+
+
+def tensors(arrays):
+    import torch
+    return {k: torch.from_numpy(v.copy()) for k, v in arrays.items()}
+
+
+def indices(path):
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    mesh = jax.make_mesh((2, 2), ("data", "model"))
+    out = {}
+    for i, (shape, spec) in enumerate(PLACEMENT_CASES):
+        idx = NamedSharding(mesh, P(*spec)).devices_indices_map(shape)
+        by_rank = {}
+        for row in range(2):
+            for col in range(2):
+                sl = idx[mesh.devices[row, col]]
+                by_rank[row * 2 + col] = [
+                    [s.start or 0, shape[d] if s.stop is None else s.stop]
+                    for d, s in enumerate(sl)]
+        out[str(i)] = by_rank
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _np(t):
+    """A copy (a replicated DTensor's ``full_tensor`` is its own storage,
+    which the next in-place step overwrites)."""
+    return _full(t).detach().float().numpy().copy()
+
+
+def _placements(out):
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding import NamedSharding
+    mesh = mesh_lib.make_host_mesh(data=2, model=2, device_type="cpu")
+    for i, (shape, spec) in enumerate(PLACEMENT_CASES):
+        t = torch.arange(int(np.prod(shape)), dtype=torch.float32)
+        local = NamedSharding(mesh, spec).distribute(
+            t.reshape(shape)).to_local().contiguous()
+        blocks = [None] * WORLD
+        dist.all_gather_object(blocks, local.numpy())
+        for r, blk in enumerate(blocks):
+            out[f"{i}/{r}"] = blk
+
+
+def _train(out):
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_model
+    from repro_torch.train import TrainConfig, init_train_state, \
+        make_train_step
+    from repro_torch.train.train_step import shard_batch
+    for shape in MESHES:
+        mesh = mesh_lib.make_host_mesh(data=shape[0], model=shape[1],
+                                       device_type="cpu")
+        tag = f"{shape[0]}x{shape[1]}"
+        for arch in TRAIN_ARCHS:
+            cfg = f32_config(arch)
+            model = get_model(cfg)
+            state = init_train_state(model, SEED, device="cpu", mesh=mesh)
+            placed = all(type(p).__name__ == "DTensor"
+                         for p in state["params"].parameters())
+            state, m = make_train_step(model, TrainConfig())(
+                state, shard_batch(tensors(batch(cfg)), mesh))
+            key = f"{arch}/{tag}"
+            out[f"{key}/all_dtensor"] = np.asarray(placed)
+            out[f"{key}/loss"] = _np(m["loss"])
+            out[f"{key}/grad_norm"] = _np(m["grad_norm"])
+            for n, p in state["params"].named_parameters():
+                out[f"{key}/p/{n}"] = _np(p)
+                out[f"{key}/mu/{n}"] = _np(state["opt"]["mu"][n])
+
+
+def _launcher(out):
+    from repro_torch import configs
+    from repro_torch.launch import train as train_lib
+    configs.get_smoke_config = f32_smoke_getter(configs)
+    run = train_lib.run(LAUNCH_ARGS + ["--model-parallel", "2"])
+    out["mesh"] = np.asarray(tuple(run["mesh"].shape))
+    out["losses"] = np.asarray([run["losses"][s]
+                                for s in sorted(run["losses"])])
+
+
+def _resume(out, ckpt):
+    import torch.distributed as dist
+    from repro_torch import checkpoint
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_model
+    from repro_torch.train import TrainConfig, init_train_state, \
+        make_train_step
+    from repro_torch.train.train_step import shard_batch, state_shardings
+    cfg = f32_config(RESUME_ARCH)
+    model = get_model(cfg)
+    step = make_train_step(model, TrainConfig())
+    batches = [tensors(batch(cfg, seed=10 + i)) for i in range(3)]
+    m41 = mesh_lib.make_host_mesh(data=4, model=1, device_type="cpu")
+    state = init_train_state(model, SEED, device="cpu", mesh=m41)
+    for i in range(2):
+        state, _ = step(state, shard_batch(batches[i], m41))
+    checkpoint.save(ckpt, 2, state)
+    saved = {n: _np(p) for n, p in state["params"].named_parameters()}
+    state, m = step(state, shard_batch(batches[2], m41))
+    out["unbroken/loss"] = _np(m["loss"])
+    for n, p in state["params"].named_parameters():
+        out[f"unbroken/p/{n}"] = _np(p)
+    m22 = mesh_lib.make_host_mesh(data=2, model=2, device_type="cpu")
+    like = init_train_state(model, SEED + 1, device="cpu", mesh=m22)
+    state = checkpoint.restore(ckpt, 2, like,
+                               shardings=state_shardings(model, m22, like))
+    out["restored_mesh"] = np.asarray(tuple(
+        state["params"].embed.table.device_mesh.shape))
+    out["restored_equal"] = np.asarray(all(
+        np.array_equal(_np(p), saved[n])
+        for n, p in state["params"].named_parameters()))
+    out["restored_step"] = _np(state["step"])
+    state, m = step(state, shard_batch(batches[2], m22))
+    out["resumed/loss"] = _np(m["loss"])
+    for n, p in state["params"].named_parameters():
+        out[f"resumed/p/{n}"] = _np(p)
+    dist.barrier()
+
+
+def rank(group, r, world, store, path):
+    import logging
+
+    import torch
+    import torch.distributed as dist
+    logging.disable(logging.WARNING)   # DTensor's per-op advice
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=r, world_size=world,
+                            timeout=timedelta(seconds=120))
+    out = {}
+    try:
+        if group == "placements":
+            _placements(out)
+        elif group == "train":
+            _train(out)
+        elif group == "launcher":
+            _launcher(out)
+        elif group == "resume":
+            with tempfile.TemporaryDirectory() as d:
+                shared = [d]
+                dist.broadcast_object_list(shared, src=0)
+                _resume(out, shared[0])
+        else:
+            raise ValueError(group)
+        if r == 0:
+            np.savez(path, **out)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src"))
+    if sys.argv[1] == "indices":
+        indices(sys.argv[2])
+    else:
+        rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+             sys.argv[6])

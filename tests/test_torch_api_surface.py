@@ -11,7 +11,7 @@ import pytest
 import torch
 
 PACKAGES = ("core", "api", "engine", "kernels", "serve", "train", "configs",
-           "models", "data", "checkpoint")
+           "models", "data", "checkpoint", "sharding")
 
 # (names only the reference exports, names only the port exports)
 DIFFERENCES = {
@@ -23,22 +23,39 @@ DIFFERENCES = {
                 "reset_collective_counter"}),
     # the age-weight ladder the port's streaming and mesh decay share
     "core": (set(), {"decay_ladder"}),
+    # torch has no NamedSharding of its own: a spec on a DeviceMesh, and
+    # the spec as DTensor placements
+    "sharding": (set(), {"NamedSharding", "placements"}),
 }
 
 # modules without ``__all__``: their public top-level names (functions and
 # classes defined there, constants), with the deliberate differences
 MODULES = ("launch.perfgate", "launch.roofline", "launch.train",
            "models.gla", "models.rwkv6", "models.rwkv6_model",
-           "models.mamba2", "models.zamba2", "models.encdec")
+           "models.mamba2", "models.zamba2", "models.encdec",
+           "sharding.rules")
+# modules the reference's own docstring forbids importing from tests (the
+# dry run sets XLA_FLAGS for 512 host devices at import): their names are
+# read from the source instead
+SOURCE_MODULES = ("launch.dryrun",)
 # the zoo families' modules add their nn.Module classes (the reference's
 # parameter trees), ``param_shapes`` and ``compute_copy`` (the registry's
 # contract for every family) and the predicate of the leaves the
 # reference reads in float32
 _FAMILY = {"compute_copy", "param_shapes"}
 MODULE_DIFFERENCES = {
-    # eager PyTorch has no partitioned HLO text to parse (its role is
-    # engine.collective_counter's), and the card's links are NVLink
-    "launch.roofline": ({"ICI_BW", "collective_bytes"}, {"NVLINK_BW"}),
+    # the card's links are NVLink; eager PyTorch has no partitioned HLO
+    # text, so collective_bytes reads one traced op and CostCounter, the
+    # dispatch mode analyze and the dry run count under, traces them
+    "launch.roofline": ({"ICI_BW"}, {"NVLINK_BW", "CostCounter"}),
+    # the spec as DTensor placements and a NamedSharding of its own; a
+    # tree made DTensors (jax.device_put's role), a rank's block as a
+    # DTensor, the mesh of a state, a decode state made inside a model
+    # laid out by the ambient rules, and the constrain site a traced
+    # collective is booked to (one process per rank needs all of these)
+    "sharding.rules": (set(), {"NamedSharding", "placements",
+                               "distribute_tree", "dtensor_of", "mesh_of",
+                               "constrain_state", "current_site"}),
     # the parser and a run() that returns the losses, for tests and the
     # smoke script, as launch/serve.py has
     "launch.train": (set(), {"parser", "run"}),
@@ -74,6 +91,29 @@ def test_module_names_match_the_reference(module):
     only_ref, only_port = MODULE_DIFFERENCES.get(module, (set(), set()))
     assert ref - port == only_ref
     assert port - ref == only_port
+
+
+def _source_public(path) -> set[str]:
+    """The public top-level functions, classes and constants of a source
+    file, read without importing it."""
+    import ast
+    tree = ast.parse(open(path).read())
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return {n for n in out if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("module", SOURCE_MODULES)
+def test_source_module_names_match_the_reference(module):
+    from pathlib import Path
+    rel = module.replace(".", "/") + ".py"
+    src = Path(__file__).resolve().parent.parent / "src"
+    assert _source_public(src / "repro" / rel) == \
+        _source_public(src / "repro_torch" / rel)
 
 
 @pytest.mark.parametrize("package", PACKAGES)

@@ -50,7 +50,8 @@ def test_importing_the_port_leaves_jax_unloaded():
             " 'repro_torch.launch.perfgate', 'repro_torch.models.gla',"
             " 'repro_torch.models.rwkv6', 'repro_torch.models.rwkv6_model',"
             " 'repro_torch.models.mamba2', 'repro_torch.models.zamba2',"
-            " 'repro_torch.models.encdec'):\n"
+            " 'repro_torch.models.encdec', 'repro_torch.sharding',"
+            " 'repro_torch.launch.dryrun'):\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
@@ -66,7 +67,8 @@ def test_importing_the_port_leaves_jax_unloaded():
     "repro_torch.train", "repro_torch.launch.train", "repro_torch.data",
     "repro_torch.checkpoint", "repro_torch.launch.perfgate",
     "repro_torch.runtime", "repro_torch.models.zamba2",
-    "repro_torch.models.encdec"])
+    "repro_torch.models.encdec", "repro_torch.sharding",
+    "repro_torch.launch.dryrun"])
 def test_each_entry_module_imports_first(module):
     """Each module imports in a fresh process as the first import (the
     train launcher imports ``repro_torch.train`` before ``core``)."""

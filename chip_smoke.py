@@ -130,6 +130,22 @@ kernels from ``src/repro_torch/kernels/csrc``, then:
            one (15c's step: its state bytes equal the card's state, its
            FLOPs 15c's roofline.analyze count, its peak beside the card's)
 
+  phase 18 the five remaining examples, the port's linter and its
+           sanitizers: (a) examples/torch_{quickstart, select_degree,
+           serve_fits, monitors_demo, fitspec_surfaces}.py at the
+           reference's sizes, each a child process on the card: exit 0,
+           its JSON line parsed, launches > 0 of the kernels it is
+           expected to reach (moments_plain for the quickstart's forced
+           kernel fit and stream, moments_packed for the others), its
+           numbers checked, serve_fits with 0 new step keys after warmup
+           and one per novel spec; (b) python -m repro_torch.analysis on
+           the checkout (no JAX there): exit 0, no unsuppressed finding;
+           (c) on CUDA tensors: a warm FitServeEngine round under
+           assert_no_recompiles passes, a fresh spec inside it trips, a
+           first kernels.build() in a fresh build directory counts as one
+           compile, nan_origin names solve given a NaN Gram.  (a) and (b)
+           run beside (c)
+
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure, or when
 CUDA is absent.
@@ -478,6 +494,7 @@ def main() -> int:
     launches15, train_out = phase15(ctx)
     launches16, family_out = phase16(ctx)
     launches17, shard_out = phase17(ctx, train_out)
+    launches18, examples_out = phase18(ctx)
 
     # ----------------------------------------------------------------- report
     replaces = {   # the TPU kernel bodies in the JAX reference
@@ -497,7 +514,8 @@ def main() -> int:
                                           launches9, launches10, launches11,
                                           launches12, launches13,
                                           launches14, launches15,
-                                          launches16, launches17))
+                                          launches16, launches17,
+                                          launches18))
                 for k in launches2}
     kernels = []
     for name in ("moments_plain", "moments_packed", "moments_packed_ring",
@@ -542,7 +560,8 @@ def main() -> int:
         f"phase14 zoo {json.dumps(zoo_out)}; phase15 train "
         f"{json.dumps(train_out)}; phase16 families "
         f"{json.dumps(family_out)}; phase17 sharded "
-        f"{json.dumps(shard_out)}; copy "
+        f"{json.dumps(shard_out)}; phase18 examples, lint, sanitizers "
+        f"{json.dumps(examples_out)}; copy "
         f"{copy_bw / 1e9:.1f} GB/s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -3349,7 +3368,7 @@ def _children(argv_of, n, timeout, tag):
         log_f = open(Path(tmp) / f"child{i}.log", "w+")
         logs.append(log_f)
         procs.append(subprocess.Popen(argv_of(i, tmp), env=env, stdout=log_f,
-                                      stderr=subprocess.STDOUT))
+                                      stderr=subprocess.STDOUT, cwd=ROOT))
     deadline = time.monotonic() + timeout
     try:
         while any(p.poll() is None for p in procs):
@@ -3489,6 +3508,185 @@ def phase17(c, train_out):
             f"the sharded path launched a fit kernel: {launches}")
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase17 {out['wall_s']:.1f} s; fit-kernel launches {launches}")
+    return launches, out
+
+
+EXAMPLES_TIMEOUT = 300        # 18a/18b's children, all at once
+# 18a: the kernels each example reaches on the card (engine.plan_fit: a
+# forced kernel fit of one series and 2^16-point chunks take moments_plain;
+# fold batches, slot pools and the step-time monitor's 8 hosts take
+# moments_packed); no example streams a report or asks for the ring
+EXAMPLES = {"quickstart": ("moments_plain",),
+            "select_degree": ("moments_packed",),
+            "serve_fits": ("moments_packed",),
+            "monitors_demo": ("moments_packed",),
+            "fitspec_surfaces": ("moments_packed",)}
+SANITIZE_REQUESTS = 64        # 18c's warm round on serve_fits' server
+
+
+def _example_json(text):
+    """The closing JSON line of an example's output."""
+    for line in reversed(text.splitlines()):
+        if line.startswith("{") and '"launches"' in line:
+            return json.loads(line)
+    raise RuntimeError(f"no JSON line in:\n{text[-2000:]}")
+
+
+def _example_checks(name, out):
+    """18a: each example's own numbers, by the repo's means."""
+    if name == "quickstart":
+        sse = out["table1"]["3"]["sse"]
+        require(abs(sse - PAPER_SSE) / PAPER_SSE <= 1e-4,
+                f"18a quickstart Σe² {sse}")
+        require(out["hankel_equals_gram"], "18a quickstart Hankel")
+        st = out["stream"]
+        require(max(abs(a - b) for a, b in zip(st["coeffs"], st["true"]))
+                <= 0.05, f"18a quickstart stream {st}")
+    elif name == "select_degree":
+        require(out["moment_calls"] == 1, f"18a one moment pass {out}")
+        require(out["best_degree"] == out["auto_degree"]
+                == out["stream_degree"] == 3, f"18a degrees {out}")
+    elif name == "serve_fits":
+        require(out["served"] == out["requests"] and out["worst_gap"] < 1e-3,
+                f"18a serve_fits {out['served']} {out['worst_gap']}")
+        require(out["new_keys_after_warmup"] == 0,
+                f"18a serve_fits new keys {out['new_keys_after_warmup']}")
+        require(out["novel_spec_keys"] == out["novel_specs"],
+                f"18a serve_fits novel-spec keys {out['novel_spec_keys']}")
+    elif name == "monitors_demo":
+        require(out["stragglers"] == [3], f"18a stragglers {out}")
+        require(abs(out["power_law"]["exponent"] + 0.35) <= 5e-3,
+                f"18a power law {out['power_law']}")
+    else:
+        for surface in ("streaming", "distributed", "serve"):
+            gap = max(abs(a - b) for a, b in zip(out[surface], out["eager"]))
+            require(gap <= 1e-3, f"18a {surface} vs eager {gap}")
+        gap = max(abs(a - b) for a, b in zip(out["eager"], out["true"]))
+        require(gap <= 5e-3, f"18a eager vs planted {gap}")
+
+
+def _sanitize(c):
+    """18c: the sanitizers on the card's tensors, in this process."""
+    import shutil
+
+    from repro_torch import analysis
+    from repro_torch.core import solve as solve_mod
+    from repro_torch.kernels import build
+    from repro_torch.serve import FitServeConfig, FitServeEngine
+    torch, dev = c["torch"], c["dev"]
+    out = {}
+    eng = FitServeEngine(FitServeConfig(degree=3, n_slots=8,
+                                        buckets=(256, 2048), ridge=1e-9),
+                         device=dev)
+    warm = eng.warmup()
+    rng = np.random.default_rng(18)
+    t0 = time.perf_counter()
+    with analysis.assert_no_recompiles("18c warm round") as counter:
+        reqs = []
+        for _ in range(SANITIZE_REQUESTS):
+            n = int(np.exp(rng.uniform(np.log(20), np.log(5000))))
+            x = rng.uniform(-2, 2, n).astype(np.float32)
+            reqs.append(eng.submit(x, (1.0 + 0.5 * x - 0.3 * x ** 3)
+                                   .astype(np.float32)))
+        eng.run()
+        c["sync"]()
+    require(all(r.done for r in reqs) and counter.count == 0,
+            "18c warm round")
+    out["warm_round_ms"] = (time.perf_counter() - t0) * 1e3
+    out["warm_keys"] = warm
+    try:
+        with analysis.assert_no_recompiles("18c novel spec") as counter:
+            eng.submit(reqs[0].x, reqs[0].y,
+                       spec=c["api"].FitSpec(degree=1))
+            eng.run()
+    except AssertionError as e:
+        require("expected zero executable compiles" in str(e)
+                and counter.names == ["step solve"], f"18c trip: {e}")
+        out["novel_spec_trip"] = counter.names
+    else:
+        raise RuntimeError("check failed: 18c a novel spec did not trip")
+
+    gram = torch.eye(4, device=dev)
+    gram[2, 2] = float("nan")
+    with analysis.nan_origin():
+        clean = solve_mod.solve(torch.eye(4, device=dev),
+                                torch.ones(4, device=dev))
+        require(bool((clean == 1).all()), "18c clean solve")
+        try:
+            solve_mod.solve(gram, torch.ones(4, device=dev))
+        except analysis.NaNOriginError as e:
+            require(e.where == "repro_torch.core.solve.solve input"
+                    and e.argument == "a", f"18c nan_origin: {e}")
+            out["nan_origin"] = str(e)
+        else:
+            raise RuntimeError("check failed: 18c nan_origin did not fire")
+    require(not hasattr(solve_mod.solve, "__wrapped__"), "18c restored")
+
+    fresh = Path(tempfile.mkdtemp())
+    saved = build.BUILD_DIR
+    build.BUILD_DIR = fresh
+    try:
+        t0 = time.perf_counter()
+        with analysis.CompileCounter() as counter:
+            lib, _ = build.build()
+            build.build()                      # cached: no compile
+        out["fresh_build_s"] = time.perf_counter() - t0
+    finally:
+        build.BUILD_DIR = saved
+        shutil.rmtree(fresh, ignore_errors=True)
+    require(counter.names == [f"nvcc {lib.name}"],
+            f"18c fresh build counted {counter.names}")
+    out["fresh_build"] = counter.names
+    return out
+
+
+def phase18(c):
+    """The five remaining examples as child processes on the card, the
+    port's linter as one more, and the sanitizers in this process beside
+    them.  The children's launch counts join this process's: each
+    example counts from 0 at its start."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    K, dev = c["K"], c["dev"]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    names = list(EXAMPLES)
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+
+    def argv(i, tmp):
+        if i < len(names):
+            return [sys.executable,
+                    str(ROOT / "examples" / f"torch_{names[i]}.py"),
+                    *dev_args]
+        return [sys.executable, "-m", "repro_torch.analysis",
+                "--format=json", "--output", f"{tmp}/lint.json"]
+
+    with ThreadPoolExecutor(1) as pool:
+        children = pool.submit(_children, argv, len(names) + 1,
+                               EXAMPLES_TIMEOUT, "phase18")
+        sanitized = _sanitize(c)
+        tmp, wall, _ = children.result()
+    launches = K.launch_counts()
+    out = {"18a": {}, "18c": sanitized, "children_wall_s": wall}
+    for i, name in enumerate(names):
+        res = _example_json((Path(tmp) / f"child{i}.log").read_text())
+        _example_checks(name, res)
+        if dev.type == "cuda":
+            for k in EXAMPLES[name]:
+                require(res["launches"][k] > 0,
+                        f"18a {name} launched no {k}: {res['launches']}")
+        for k, v in res["launches"].items():
+            launches[k] += v
+        out["18a"][name] = {"launches": res["launches"]}
+    with open(Path(tmp) / "lint.json") as f:
+        lint = json.load(f)
+    require(lint["files_scanned"] > 50 and not lint["counts_unsuppressed"],
+            f"18b lint {lint['counts_unsuppressed']}")
+    out["18b"] = {"files_scanned": lint["files_scanned"],
+                  "suppressed": lint["counts"]}
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase18 {json.dumps(out)}")
     return launches, out
 
 

@@ -76,6 +76,11 @@ def link_command(objs: list[Path], out: Path,
             "-o", str(out), *map(str, objs)]
 
 
+# called with the library's path after each build that ran nvcc
+# (``repro_torch.analysis.CompileCounter`` appends here)
+BUILD_OBSERVERS: list = []
+
+
 def build() -> tuple[Path, str]:
     """Compile the library if its keyed file is missing: one ``nvcc -c``
     per source, all started together, then one link.  Returns the path and
@@ -111,6 +116,8 @@ def build() -> tuple[Path, str]:
                            f"{report}")
     log.write_text(report)
     os.replace(tmp, lib)
+    for observe in list(BUILD_OBSERVERS):
+        observe(lib)
     return lib, report
 
 

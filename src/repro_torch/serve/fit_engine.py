@@ -34,6 +34,7 @@ The host loop is synchronous and deterministic.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any
 
 import numpy as np
@@ -67,17 +68,32 @@ def _signature(a):
     return a
 
 
+# called as observer(step name, key) on each key a StepFunction has not run
+# under before (``repro_torch.analysis.CompileCounter`` appends here); the
+# fleet's steps are this module's, so this one list sees both servers
+KEY_OBSERVERS: list = []
+
+
 class StepFunction:
     """A serving step and the argument signatures it has run under: the
     count of distinct signatures is what the reference's jit cache size
-    counts for the same traffic."""
+    counts for the same traffic.  The fleet calls one from several worker
+    threads, so a new key is recorded (and observed) once."""
 
     def __init__(self, fn):
         self.fn = fn
+        self.name = getattr(fn, "__name__", type(fn).__name__)
         self._keys: set = set()
+        self._lock = threading.Lock()
 
     def __call__(self, *args):
-        self._keys.add(_signature(args))
+        key = _signature(args)
+        with self._lock:
+            new = key not in self._keys
+            self._keys.add(key)
+        if new:
+            for observe in list(KEY_OBSERVERS):
+                observe(self.name, key)
         return self.fn(*args)
 
     def _cache_size(self) -> int:

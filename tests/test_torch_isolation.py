@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports jax, jaxlib or the reference package ``repro``,
-and importing the port leaves jax out of ``sys.modules``."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no ``examples/torch_*.py`` imports jax, jaxlib or
+the reference package ``repro``, and importing the port leaves jax out of
+``sys.modules``."""
 import ast
 import subprocess
 import sys
@@ -11,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -51,7 +52,13 @@ def test_importing_the_port_leaves_jax_unloaded():
             " 'repro_torch.models.rwkv6', 'repro_torch.models.rwkv6_model',"
             " 'repro_torch.models.mamba2', 'repro_torch.models.zamba2',"
             " 'repro_torch.models.encdec', 'repro_torch.sharding',"
-            " 'repro_torch.launch.dryrun'):\n"
+            " 'repro_torch.launch.dryrun', 'repro_torch.analysis',"
+            " 'repro_torch.analysis.core', 'repro_torch.analysis.determinism',"
+            " 'repro_torch.analysis.protocol',"
+            " 'repro_torch.analysis.numerics',"
+            " 'repro_torch.analysis.jit_hazards',"
+            " 'repro_torch.analysis.sanitizers',"
+            " 'repro_torch.analysis.__main__'):\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
@@ -68,7 +75,7 @@ def test_importing_the_port_leaves_jax_unloaded():
     "repro_torch.checkpoint", "repro_torch.launch.perfgate",
     "repro_torch.runtime", "repro_torch.models.zamba2",
     "repro_torch.models.encdec", "repro_torch.sharding",
-    "repro_torch.launch.dryrun"])
+    "repro_torch.launch.dryrun", "repro_torch.analysis"])
 def test_each_entry_module_imports_first(module):
     """Each module imports in a fresh process as the first import (the
     train launcher imports ``repro_torch.train`` before ``core``)."""

@@ -3239,8 +3239,17 @@ def phase16(c):
 # ---------------------------------------------------------------- phase 17
 SHARD_TIMEOUT = 400           # 17c's dry runs, each
 # 17c: the dry run's cells at 16 × 16 (fake ranks), then 15c's step on a
-# (1, 1) mesh
-SHARD_DRYRUN = (("internlm2-1.8b", "train_4k"), ("qwen1.5-4b", "decode_32k"))
+# (1, 1) mesh.  internlm2's 8 kv heads and qwen1.5's 20 do not divide the
+# 16-way model axis: internlm2's attention runs on q-head blocks, qwen's
+# decode on its head_dim-split cache; zamba2's long_500k (batch 1) splits
+# its shared attention's cache over kv_seq on all 256 ranks
+SHARD_DRYRUN = (("internlm2-1.8b", "train_4k"), ("qwen1.5-4b", "decode_32k"),
+                ("zamba2-7b", "long_500k"))
+# 17c's bounds on those cells (the dry run's per-rank figures; the
+# reference's on the same host are 1.0725e14 FLOPs, 2.50 GB and 3.06 GB)
+SHARD_TRAIN_FLOPS_MAX = 1.5e14
+SHARD_DECODE_COLL_MAX = 5e9
+SHARD_LONG_COLL_MAX = 6.1e9
 
 
 def _shard_group(c, store):
@@ -3451,6 +3460,7 @@ def _shard_dryrun(c, train_out):
         require(meta["status"] == "ok", f"17c {meta}")
         out["cells"][f"{meta['arch']} {meta['shape']} {meta['mesh']}"] = {
             k: meta[k] for k in keys}
+    _shard_bounds({(m["arch"], m["shape"]): m for m in res[:-1]})
     one = res[-1]
     # the card's state: 15c's model drawn again, its storages' bytes and
     # the allocator's growth
@@ -3486,6 +3496,38 @@ def _shard_dryrun(c, train_out):
         "lower_s": one["lower_s"]}
     log(f"phase17c {json.dumps(out)}")
     return out
+
+
+def _shard_bounds(cells):
+    """17c's bounds: internlm2's train FLOPs a rank (attention on q-head
+    blocks); qwen's decode collective bytes, with nothing at
+    ``_on_local_blocks`` (no gather of the head_dim-split cache); zamba2's
+    long-context bytes (the in-place cache writes booked 207.6 GB inside
+    DTensor's ops before), with nothing at ``_on_local_blocks`` and, at
+    ``_write_rows``, only the new K/V rows gathered for their owner: k and
+    v of 13 shared-block applications, 1 · kv_heads · head_dim bf16
+    values each."""
+    from repro_torch import configs
+    from repro_torch.models import zamba2
+    train = cells[SHARD_DRYRUN[0]]
+    require(train["flops_per_dev"] <= SHARD_TRAIN_FLOPS_MAX,
+            f"17c {SHARD_DRYRUN[0]} FLOPs {train['flops_per_dev']:.4e}")
+    dec = cells[SHARD_DRYRUN[1]]
+    sites = dec["coll_by_site"]
+    require(dec["coll_bytes_per_dev"] <= SHARD_DECODE_COLL_MAX
+            and sites.get("attention.py:_on_local_blocks", 0.0) == 0.0,
+            f"17c {SHARD_DRYRUN[1]} bytes {dec['coll_bytes_per_dev']:.4e}, "
+            f"by site {sites}")
+    long = cells[SHARD_DRYRUN[2]]
+    sites = long["coll_by_site"]
+    cfg = zamba2._shared_attn_cfg(configs.get_config(SHARD_DRYRUN[2][0]))
+    rows = (2 * zamba2.n_groups(configs.get_config(SHARD_DRYRUN[2][0]))
+            * cfg.n_kv_heads * cfg.head_dim * 2)
+    require(long["coll_bytes_per_dev"] <= SHARD_LONG_COLL_MAX
+            and sites.get("attention.py:_on_local_blocks", 0.0) == 0.0
+            and sites.get("attention.py:_write_rows", 0.0) <= rows,
+            f"17c {SHARD_DRYRUN[2]} bytes {long['coll_bytes_per_dev']:.4e}, "
+            f"by site {sites}, new rows {rows}")
 
 
 def phase17(c, train_out):

@@ -112,15 +112,18 @@ def local_moments(x: torch.Tensor, y: torch.Tensor, degree: int, *,
                   basis: str = basis_lib.MONOMIAL,
                   weights: torch.Tensor | None = None,
                   accum_dtype=None,
-                  engine: str = "auto") -> moments_lib.Moments:
+                  engine: str = "auto",
+                  use_kernel: bool | None = None) -> moments_lib.Moments:
     """One rank's moment accumulation over its own block.
 
     Routes through ``engine.plan_fit`` on the block's device (a CUDA
     block takes the kernels), which validates the basis on kernel paths:
-    forcing the kernel with a non-monomial basis raises here."""
+    forcing the kernel with a non-monomial basis raises here.
+    ``use_kernel`` is a deprecated alias of ``engine=``."""
     plan = engine_lib.plan_fit(
         tuple(x.shape), degree, basis=basis, dtype=x.dtype,
-        weighted=weights is not None, engine=engine,
+        weighted=weights is not None,
+        engine=engine_lib.resolve_engine(engine, use_kernel),
         accum_dtype=accum_dtype, device=x.device)
     return engine_lib.compute_moments(plan, x, y, weights)
 
@@ -410,7 +413,8 @@ def make_distributed_fit(mesh, degree: int, *,
                          basis: str = basis_lib.MONOMIAL,
                          normalize: bool = False,
                          accum_dtype=torch.float32,
-                         engine: str = "auto"):
+                         engine: str = "auto",
+                         use_kernel: bool | None = None):
     """A distributed fit: ``(x, y, weights) -> (Polynomial, Moments)``.
     Thin shim over ``make_spec_executor``: the kwargs assemble a
     ``FitSpec(method="lse")``.
@@ -419,10 +423,11 @@ def make_distributed_fit(mesh, degree: int, *,
     contract); weights mask padding (ragged global series).  The
     Polynomial comes out replicated.  ``normalize=True`` computes the
     global min/max first (the second tiny collective) and fits in the
-    normalized domain.  ``method=`` is the legacy spelling of
-    ``solver=``."""
+    normalized domain.  ``use_kernel`` is a deprecated alias of
+    ``engine=``; ``method=`` the legacy spelling of ``solver=``."""
     from repro_torch.api import spec as spec_lib
     from repro_torch.engine import plan as plan_lib
+    engine = engine_lib.resolve_engine(engine, use_kernel)
     if method is not None:
         solver = method
     spec = spec_lib.FitSpec(

@@ -102,16 +102,20 @@ def polyfit(x, y, degree, *, weights=None,
             solver: str = "auto",
             fallback: str | None = "svd",
             cond_cap: float | None = None,
+            use_kernel: bool | None = None,
             device=None) -> Polynomial:
     """The paper's pipeline; a shim over ``api.fit``.  ``degree="auto"``
     or ``degree=DegreeSearch(...)`` picks the degree from the same single
-    moment pass (``select/``).  ``device=None`` means CUDA; pass
-    ``device="cpu"`` for the plain PyTorch path."""
+    moment pass (``select/``).  ``use_kernel`` is a deprecated alias of
+    ``engine=``.  ``device=None`` means CUDA; pass ``device="cpu"`` for
+    the plain PyTorch path."""
     from repro_torch import api
+    from repro_torch import engine as engine_lib
     spec = api.spec_from_legacy(
         degree, method=method, basis=basis, normalize=normalize,
-        accum_dtype=accum_dtype, engine=engine, solver=solver,
-        fallback=fallback, cond_cap=cond_cap)
+        accum_dtype=accum_dtype,
+        engine=engine_lib.resolve_engine(engine, use_kernel),
+        solver=solver, fallback=fallback, cond_cap=cond_cap)
     return api.fit(x, y, spec, weights=weights, device=device).poly
 
 

@@ -224,7 +224,8 @@ def update_plan(state: StreamState, shape: tuple[int, ...], dtype,
 
 def update(state: StreamState, x, y, *, weights=None,
            basis: str = basis_lib.MONOMIAL,
-           engine: str = "auto") -> StreamState:
+           engine: str = "auto",
+           use_kernel: bool | None = None) -> StreamState:
     """Fold a new chunk (..., n) into the running moments.
 
     With decay γ, previous weighted mass is multiplied by γ**n_new (a
@@ -233,11 +234,12 @@ def update(state: StreamState, x, y, *, weights=None,
     exempt from decay: it keeps the true number of contributing points,
     from the USER weights only.  The chunk is moved to the state's device;
     ``engine`` picks the accumulation path via ``engine.plan_fit``
-    (planned on that device).  When the state carries a ``FitSpec``, the
+    (planned on that device); ``use_kernel`` is a deprecated alias.  When the state carries a ``FitSpec``, the
     spec's basis/engine/domain win over the arguments and
     ``method="irls"`` reweights the chunk against the running fit
     first."""
     from repro_torch import engine as engine_lib
+    engine = engine_lib.resolve_engine(engine, use_kernel)
     spec = state.spec
     dev = state.device
     x = as_tensor(x, dev)

@@ -5,7 +5,7 @@ and returns a ``FitPlan`` that ``compute_moments`` /
 ``compute_report_sums`` execute."""
 from repro_torch.engine.plan import (FitPlan, NumericsPolicy, plan_fit,
                                      compute_moments, compute_report_sums,
-                                     resolve_numerics,
+                                     resolve_engine, resolve_numerics,
                                      reset_moment_counter, moment_counter,
                                      record_collective,
                                      reset_collective_counter,
@@ -19,7 +19,8 @@ from repro_torch.engine.plan import (FitPlan, NumericsPolicy, plan_fit,
 __all__ = [
     "FitPlan", "NumericsPolicy", "plan_fit",
     "compute_moments", "compute_report_sums",
-    "resolve_numerics", "reset_moment_counter", "moment_counter",
+    "resolve_engine", "resolve_numerics", "reset_moment_counter",
+    "moment_counter",
     "record_collective", "reset_collective_counter", "collective_counter",
     "REFERENCE", "KERNEL_PLAIN", "KERNEL_PACKED", "PATHS", "ENGINES",
     "SOLVERS", "PACKED_MIN_BATCH", "KERNEL_MIN_POINTS",

@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import threading
+import warnings
 from typing import Any
 
 import torch
@@ -156,6 +157,23 @@ def resolve_numerics(degree: int, *, basis: str = "monomial",
     return NumericsPolicy(accum_dtype=accum_dtype, compensated=compensated,
                           normalize=normalize, solver=solver,
                           fallback=fallback, cond_cap=cond_cap)
+
+
+def resolve_engine(engine: str, use_kernel: bool | None) -> str:
+    """Fold the deprecated ``use_kernel`` boolean into ``engine=``."""
+    if use_kernel is not None:
+        warnings.warn(
+            "use_kernel= is deprecated; pass engine='kernel' / "
+            "engine='reference' (or leave engine='auto')",
+            DeprecationWarning, stacklevel=3)
+        mapped = "kernel" if use_kernel else "reference"
+        if engine not in ("auto", mapped):
+            raise ValueError(
+                f"conflicting engine={engine!r} and use_kernel={use_kernel} "
+                f"(the deprecated alias means engine={mapped!r}); drop "
+                "use_kernel=")
+        return mapped
+    return engine
 
 
 def plan_fit(shape: tuple[int, ...], degree: int, *,

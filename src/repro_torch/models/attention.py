@@ -14,6 +14,13 @@ float32 cast back.  The cache is written in place: ``attend_decode``
 writes one row at ``min(cache_len, max_len - 1)``, the start JAX's
 ``dynamic_update_slice`` clamps to, so a pooled length past the buffer
 overwrites its last row as the reference does instead of raising.
+
+Under a mesh, attention runs on each rank's own blocks
+(``_on_local_blocks``), and decode reads the cache where its layout put
+it: split by head_dim, the partial logits are all-reduced
+(``_over_head_dim``); split by kv_seq, the blocks' softmax statistics are
+combined (``_over_kv_seq``) and each new row is written by the rank that
+holds its position (``_write_rows``).
 """
 from __future__ import annotations
 
@@ -134,22 +141,42 @@ def _qkv(p, cfg: AttnConfig, x, positions):
 def _sdpa(cfg: AttnConfig, q, k, v, mask):
     """q: (b, sq, h, hd); k/v: (b, skv, kh, hd); mask: (b|1, 1, sq, skv)."""
     if _is_dtensor(q):
+        split = _cache_split(k)
+        if split == 3:
+            return _over_head_dim(cfg, q, k, v, mask)
+        if split == 1:
+            return _over_kv_seq(cfg, q, k, v, mask)
         return _on_local_blocks(
             cfg, q, k, v, lambda ql, kl, vl, rows, qoff: _sdpa(
                 cfg, ql, kl, vl, _local_mask(mask, rows, qoff, ql.shape[1])))
+    probs = torch.softmax(_masked(cfg, _logits(cfg, q, k), mask), dim=-1)
+    return _weighted(probs.to(q.dtype), v)
+
+
+def _logits(cfg: AttnConfig, q, k):
+    """(b, kh, group, sq, skv) float32 logits of q (b, sq, h, hd) against
+    k (b, skv, kh, hd), before the soft-cap and the mask (head_dim may be
+    a block of the heads' own: the scale is the whole head's)."""
     b, sq, h, hd = q.shape
     kh = k.shape[2]
-    group = h // kh
     scale = cfg.query_scale or (1.0 / math.sqrt(cfg.head_dim))
-    qg = q.reshape(b, sq, kh, group, hd) * scale
-    logits = torch.einsum("bqhgk,bshk->bhgqs", qg.float(), k.float())
+    qg = q.reshape(b, sq, kh, h // kh, hd) * scale
+    return torch.einsum("bqhgk,bshk->bhgqs", qg.float(), k.float())
+
+
+def _masked(cfg: AttnConfig, logits, mask):
     if cfg.logit_softcap:
         logits = cm.softcap(logits, cfg.logit_softcap)
     # mask: (b|1, 1, sq, skv) -> broadcast over (kh, group)
-    logits = torch.where(mask[:, :, None], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.where(mask[:, :, None], logits, NEG_INF)
+
+
+def _weighted(probs, v):
+    """probs (b, kh, group, sq, skv) · v (b, skv, kh, hd) -> (b, sq, h,
+    hd)."""
+    b, kh, group, sq, _ = probs.shape
     out = torch.einsum("bhgqs,bshk->bqhgk", probs, v)
-    return out.reshape(b, sq, h, hd)
+    return out.reshape(b, sq, kh * group, v.shape[-1])
 
 
 def _sdpa_chunked(cfg: AttnConfig, q, k, v, *, window: int | None,
@@ -157,7 +184,7 @@ def _sdpa_chunked(cfg: AttnConfig, q, k, v, *, window: int | None,
     """Query-chunked attention: the peak logits buffer is (b, kh, g,
     q_chunk, skv) instead of O(sq·skv).  Each chunk sees the full K/V with
     its own causal/window mask slice."""
-    if _is_dtensor(q):
+    if _is_dtensor(q) and _cache_split(k) is None:
         return _on_local_blocks(
             cfg, q, k, v, lambda ql, kl, vl, rows, qoff: _sdpa_chunked(
                 cfg, ql, kl, vl, window=window,
@@ -187,38 +214,174 @@ def _is_dtensor(x) -> bool:
 def _on_local_blocks(cfg: AttnConfig, q, k, v, fn):
     """Attention of DTensors run on each rank's own blocks: every (batch
     row, head) pair attends independently, so once q, k and v are laid out
-    with the batch over the data axes and the heads over "model" (where the
-    kv heads divide it; else, with ``seq_shard``, the query sequence; else
-    replicated), ``fn(q, k, v, batch rows, query offset)`` on the local
-    blocks computes this rank's block of the output exactly.  DTensor's
-    own strategies would shard the products' merged dimensions in ways the
-    splits after them cannot take.  The redistributes are ``constrain``s;
-    ``to_local``/``from_local`` carry the gradients."""
+    with the batch over the data axes and the heads over "model" (the kv
+    heads where they divide it; else, with ``seq_shard``, the query
+    sequence; else the q heads where they divide it, each rank reading the
+    kv heads its own q heads use; else replicated), ``fn(q, k, v, batch
+    rows, query offset)`` on the local blocks computes this rank's block
+    of the output exactly.  DTensor's own strategies would shard the
+    products' merged dimensions in ways the splits after them cannot take.
+    The redistributes are ``constrain``s; ``to_local``/``from_local``
+    carry the gradients."""
     from torch.distributed.tensor import Partial, Shard
     from repro_torch.sharding.rules import dtensor_of, spec_for
     b, sq, h, hd = q.shape
     kh = k.shape[2]
     mesh = q.device_mesh
-    if spec_for(mesh, ("kv_heads",), dims=(kh,))[0] is not None:
-        q = constrain(q, "batch", None, "q_heads", None)
-    elif cfg.seq_shard:
+    if cfg.seq_shard and spec_for(mesh, ("kv_heads",), dims=(kh,))[0] is None:
         q = constrain(q, "batch", "q_seq", None, None,
                       overrides={"q_seq": "model"})
     else:
-        q = constrain(q, "batch", None, None, None)
+        q = constrain(q, "batch", None, "q_heads", None)
     k = constrain(k, "batch", None, "kv_heads", None)
     v = constrain(v, "batch", None, "kv_heads", None)
     rows = _block_range(mesh, q.placements, 0, b)
     qoff = _block_range(mesh, q.placements, 1, sq)[0]
     # where the queries are split and the keys are not (a query-sequence
-    # shard), each rank's key and value gradients are its queries' share:
-    # partial sums over that mesh dimension
+    # shard, or q heads whose kv heads do not divide "model"), each rank's
+    # key and value gradients are its queries' share: partial sums over
+    # that mesh dimension
     kv_grad = [Partial() if isinstance(qp, Shard) and not
                isinstance(kp, Shard) else kp
                for qp, kp in zip(q.placements, k.placements)]
-    out = fn(q.to_local(), k.to_local(grad_placements=kv_grad),
-             v.to_local(grad_placements=kv_grad), rows, qoff)
+    kl = k.to_local(grad_placements=kv_grad)
+    vl = v.to_local(grad_placements=kv_grad)
+    heads = _block_range(mesh, q.placements, 2, h)
+    if kl.shape[2] == kh and heads != (0, h):
+        kl, vl = _kv_heads_of(heads, h // kh, kl, vl)
+    out = fn(q.to_local(), kl, vl, rows, qoff)
     return dtensor_of(out, mesh, q.placements, (b, sq, h, hd))
+
+
+def _kv_heads_of(heads, group, k, v):
+    """The kv heads that q heads [heads[0], heads[1]) read (q head i reads
+    kv head i // group), from k and v holding every kv head: one kv head
+    where the q heads fall in one group, else one per q head (so the
+    local group is 1)."""
+    lo, hi = heads
+    if group % (hi - lo) == 0:
+        j = lo // group
+        return k[:, :, j:j + 1], v[:, :, j:j + 1]
+    idx = torch.arange(lo, hi, device=k.device) // group
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+# ----------------------------------------- decode on a split K/V cache
+def _cache_split(k):
+    """The dimension of a K/V cache (b, skv, kh, hd) that a mesh dimension
+    of more than one rank splits other than the batch and the kv heads:
+    1 (kv_seq, the long-context rules), 3 (head_dim, the decode rules'
+    fallback where the kv heads do not divide "model") or None."""
+    from torch.distributed.tensor import Shard
+    if not _is_dtensor(k):
+        return None
+    mesh = k.device_mesh
+    split = {p.dim for i, p in enumerate(k.placements)
+             if isinstance(p, Shard) and p.dim in (1, 3) and mesh.size(i) > 1}
+    if len(split) > 1:
+        raise ValueError(f"a K/V cache split over both kv_seq and head_dim "
+                         f"({k.placements}) has no attention here")
+    return split.pop() if split else None
+
+
+def _mapped(placements, dims: dict, partial: str | None = None):
+    """``placements`` of a (b, skv, kh, hd) cache carried to another
+    tensor: ``Shard(d)`` becomes ``Shard(dims[d])``, or, where ``dims``
+    has no ``d``, ``Partial(partial)`` (a sum or max over that split still
+    to reduce) or ``Replicate``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    out = []
+    for p in placements:
+        if not isinstance(p, Shard):
+            out.append(p)
+        elif p.dim in dims:
+            out.append(Shard(dims[p.dim]))
+        else:
+            out.append(Partial(partial) if partial else Replicate())
+    return out
+
+
+def _over_head_dim(cfg: AttnConfig, q, k, v, mask):
+    """Decode on a cache whose head_dim is split over "model" (the decode
+    rules where the kv heads do not divide it), as the reference contracts
+    it: q laid out as the cache (its head_dim split alike), each rank's
+    q·kᵀ over its own head_dim block, one all-reduce of the (b, h, sq,
+    skv) partial logits, the soft-cap, mask and softmax on the sums, and
+    p·v on the rank's block of v: the output leaves head_dim-split and is
+    laid out by the q heads again.  The cache does not move."""
+    from repro_torch.sharding.rules import dtensor_of, relayout
+    b, sq, h, hd = q.shape
+    kh, skv = k.shape[2], k.shape[1]
+    mesh = k.device_mesh
+    q = relayout(q, k.placements)
+    v = relayout(v, k.placements)
+    part = dtensor_of(_logits(cfg, q.to_local(), k.to_local()), mesh,
+                      _mapped(k.placements, {0: 0, 2: 1}, "sum"),
+                      (b, kh, h // kh, sq, skv))
+    logits = relayout(part, _mapped(k.placements, {0: 0, 2: 1})).to_local()
+    rows = _block_range(mesh, k.placements, 0, b)
+    probs = torch.softmax(_masked(cfg, logits,
+                                  _local_mask(mask, rows, 0, sq)), dim=-1)
+    out = _weighted(probs.to(q.dtype), v.to_local())
+    out = dtensor_of(out, mesh, k.placements, (b, sq, h, hd))
+    return constrain(out, "batch", None, "q_heads", None)
+
+
+def _over_kv_seq(cfg: AttnConfig, q, k, v, mask):
+    """Decode on a cache whose kv_seq is split (the long-context rules),
+    combined as flash decoding does: q whole on every block of key
+    positions, each rank's logits masked at its block's global positions,
+    an all-reduce of the blocks' maxima, each rank's exp(logits - max)
+    and its sum, an all-reduce of the sums, and an all-reduce of each
+    rank's normalized p·v.  A fully masked block holds NEG_INF logits,
+    whose exp against the global (finite) maximum is 0: it adds nothing.
+    The cache does not move."""
+    from repro_torch.sharding.rules import dtensor_of, relayout
+    b, sq, h, hd = q.shape
+    kh, skv = k.shape[2], k.shape[1]
+    mesh = k.device_mesh
+    q = relayout(q, _mapped(k.placements, {0: 0, 2: 2, 3: 3}))
+    v = relayout(v, k.placements)
+    rows = _block_range(mesh, k.placements, 0, b)
+    lo, hi = _block_range(mesh, k.placements, 1, skv)
+    logits = _masked(cfg, _logits(cfg, q.to_local(), k.to_local()),
+                     _local_mask(mask, rows, 0, sq)[..., lo:hi])
+    stat, st = (b, kh, h // kh, sq, 1), {0: 0, 2: 1}   # (kh at dim 1)
+    top = relayout(dtensor_of(logits.amax(dim=-1, keepdim=True), mesh,
+                              _mapped(k.placements, st, "max"), stat),
+                   _mapped(k.placements, st)).to_local()
+    e = torch.exp(logits - top)
+    total = relayout(dtensor_of(e.sum(dim=-1, keepdim=True), mesh,
+                                _mapped(k.placements, st, "sum"), stat),
+                     _mapped(k.placements, st)).to_local()
+    # the partial outputs sum in float32 and round to q's dtype once
+    probs = (e / total).to(q.dtype)
+    out = _weighted(probs.float(), v.to_local().float())
+    heads = {0: 0, 2: 2, 3: 3}
+    out = relayout(dtensor_of(out, mesh, _mapped(k.placements, heads, "sum"),
+                              (b, sq, h, hd)),
+                   _mapped(k.placements, heads))
+    return constrain(out.to(q.dtype), "batch", None, "q_heads", None)
+
+
+def _write_rows(cache, start: int, rows):
+    """``cache[:, start:start + n] = rows`` in place, for rows (b, n, kh,
+    hd).  On a cache split over kv_seq each rank writes the rows its own
+    block holds into that block, from the rows laid out as the cache is
+    save for kv_seq: no block of the cache moves."""
+    n = rows.shape[1]
+    if _cache_split(cache) != 1:
+        cache[:, start:start + n] = rows.to(cache.dtype)
+        return
+    from repro_torch.sharding.rules import relayout
+    lo, hi = _block_range(cache.device_mesh, cache.placements, 1,
+                          cache.shape[1])
+    rows = relayout(rows.to(cache.dtype),
+                    _mapped(cache.placements, {0: 0, 2: 2, 3: 3}))
+    a, z = max(start, lo), min(start + n, hi)
+    if a < z:
+        cache.to_local()[:, a - lo:z - lo] = rows.to_local()[:, a - start:
+                                                             z - start]
 
 
 def _block_range(mesh, placements, dim, size):
@@ -288,8 +451,8 @@ def attend_prefill(p, cfg: AttnConfig, x, positions, cache, *,
     if sq > cache["k"].shape[1]:
         raise ValueError(f"a prompt of {sq} tokens does not fit a cache of "
                          f"{cache['k'].shape[1]}")
-    cache["k"][:, :sq] = k.to(cache["k"].dtype)
-    cache["v"][:, :sq] = v.to(cache["v"].dtype)
+    _write_rows(cache["k"], 0, k)
+    _write_rows(cache["v"], 0, v)
     if q_chunk and sq > q_chunk:
         out = _sdpa_chunked(cfg, q, k, v, window=window, q_chunk=q_chunk)
     else:
@@ -311,8 +474,8 @@ def attend_decode(p, cfg: AttnConfig, x, cache, cache_len: int, *,
     ck, cv = cache["k"], cache["v"]
     skv = ck.shape[1]
     start = min(cache_len, skv - 1)       # JAX clamps the update's start
-    ck[:, start] = k[:, 0].to(ck.dtype)
-    cv[:, start] = v[:, 0].to(cv.dtype)
+    _write_rows(ck, start, k)
+    _write_rows(cv, start, v)
     kpos = torch.arange(skv, device=x.device)[None, :]
     valid = kpos <= cache_len
     if window is not None:

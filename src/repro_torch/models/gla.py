@@ -100,10 +100,12 @@ def chunked_gla(q, k, v, logw, *, u=None, initial_state=None,
     f32 = torch.float32
     lw = logw.to(f32).expand(b, h, t, dk)
 
+    # the sequence whole on every rank (a DTensor may arrive split along
+    # it): the cumsum below runs along it
     con = lambda a: constrain(a.to(f32), "batch", "heads", None, None)
     resh = lambda a, d: a.reshape(b, h, nc, chunk, d)
     qc, kc, vc = resh(con(q), dk), resh(con(k), dk), resh(con(v), dv)
-    lwc = resh(lw, dk)
+    lwc = resh(con(lw), dk)
     cum = torch.cumsum(lwc, dim=-2)                    # inclusive cumsum
     total = cum[..., -1:, :]                           # (B, H, nc, 1, dk)
 

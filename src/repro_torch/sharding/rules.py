@@ -334,10 +334,24 @@ def constrain(x, *logical, overrides: dict | None = None, dims=None):
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
-    caller = sys._getframe(1)
-    site = (f"{os.path.basename(caller.f_code.co_filename)}:"
+    return _Constrain.apply(x, mesh, want, _caller_site())
+
+
+def relayout(x, placements):
+    """The DTensor ``x`` laid out by DTensor ``placements`` on its own mesh,
+    as ``constrain`` lays it out by logical axes (in both directions, and
+    booked to the caller's site): for a layout read off another tensor, as
+    attention takes its K/V cache's.  A ``Partial`` input is reduced by
+    the move."""
+    return _Constrain.apply(x, x.device_mesh, tuple(placements),
+                            _caller_site())
+
+
+def _caller_site() -> str:
+    """``file:function`` of the caller of ``constrain``/``relayout``."""
+    caller = sys._getframe(2)
+    return (f"{os.path.basename(caller.f_code.co_filename)}:"
             f"{caller.f_code.co_name}")
-    return _Constrain.apply(x, mesh, want, site)
 
 
 _SITE = threading.local()

@@ -9,9 +9,14 @@ family's smoke config at each kind of ``SHAPES`` (train, prefill, decode,
 long-context decode), the state bytes of one cell, the costs extrapolated
 from reduced depths beside the full-depth trace, a train cell of 4
 microbatches traced whole beside its 2- and 3-microbatch extrapolation,
-and a sharded product's collectives; on 256 fake ranks (16 × 16) one
-cell; on 1 fake rank the (1, 1) cell ``ONE_RANK`` that the test holds
-against ``roofline.analyze`` of the real step.  Writes one JSON object.
+and a sharded product's collectives.  On the (1, 4) mesh of the same 4
+ranks, where internlm2's 2 kv heads do not divide "model" and its 4 q
+heads do: its decode cell (the cache split by head_dim) with its
+collective bytes by site and kind, and the FLOPs of ``attention._sdpa``
+forward and backward on q, k and v laid out as ``_qkv`` lays them out,
+beside the same without a mesh.  On 256 fake ranks (16 × 16) one cell;
+on 1 fake rank the (1, 1) cell ``ONE_RANK`` that the test holds against
+``roofline.analyze`` of the real step.  Writes one JSON object.
 """
 from __future__ import annotations
 
@@ -44,6 +49,56 @@ def smoke(arch, **kw):
 
 
 ONE_RANK = ("internlm2-1.8b", 2)     # (arch, microbatches) at train_s
+SPLIT_ARCH = "internlm2-1.8b"        # 4 q heads, 2 kv heads, on (1, 4)
+
+
+def split_decode(mesh):
+    """The decode cell of SPLIT_ARCH on ``mesh``: its meta and its
+    collective bytes by (site, kind)."""
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import roofline as roof
+    from repro_torch.sharding.rules import current_site
+    by = {}
+    orig = roof.collective_bytes
+
+    def booked(func, out):
+        got = orig(func, out)
+        if got is not None:
+            site = by.setdefault(current_site() or "implicit", {})
+            site[got[0]] = site.get(got[0], 0.0) + got[1]
+        return got
+    roof.collective_bytes = booked
+    try:
+        _, meta = dr.lower_cell(SPLIT_ARCH, shapes()["decode"], mesh,
+                                cfg=smoke(SPLIT_ARCH))
+    finally:
+        roof.collective_bytes = orig
+    return {"meta": meta, "by_site_kind": by}
+
+
+def attention_flops(mesh, b, s):
+    """FLOPs of SPLIT_ARCH's ``attention._sdpa`` (causal, forward and the
+    gradients of q, k and v), with q, k and v pinned as ``_qkv`` pins
+    them under ``mesh`` (None: plain tensors)."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import roofline as roof
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
+    from repro_torch.sharding.rules import constrain
+    acfg = transformer._attn_cfg(smoke(SPLIT_ARCH))
+    h, kh, hd = acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
+    counter = roof.CostCounter()
+    with mesh_lib.fake_tensors(), mesh_lib.use_mesh(mesh):
+        leaves = [torch.empty(b, s, n, hd, requires_grad=True)
+                  for n in (h, kh, kh)]
+        q = constrain(leaves[0], "batch", None, "q_heads", None)
+        k, v = (constrain(t, "batch", None, "kv_heads", None)
+                for t in leaves[1:])
+        with counter:
+            out = attn._sdpa(acfg, q, k, v, attn.causal_mask(s, s))
+            torch.autograd.grad(out, leaves, torch.ones_like(out))
+    return counter.flops
 
 
 def main(path):
@@ -109,6 +164,13 @@ def main(path):
                 x.redistribute(mesh, [Replicate(), Replicate()])
             out["matmul"] = {"flops": c.flops, "coll": c.coll,
                              "partial": isinstance(p.placements[1], Partial)}
+        # the kv heads do not divide "model": attention on q-head blocks
+        # and decode on a head_dim-split cache
+        narrow = mesh_lib.make_host_mesh(data=1, model=4, device_type="cpu")
+        out["split_decode"] = split_decode(narrow)
+        b, s = shapes()["train"].global_batch, shapes()["train"].seq_len
+        out["attention_flops"] = {"sharded": attention_flops(narrow, b, s),
+                                  "unsharded": attention_flops(None, b, s)}
     finally:
         dist.destroy_process_group()
 

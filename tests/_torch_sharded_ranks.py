@@ -24,7 +24,14 @@ running one GROUP of checks; rank 0 writes OUT.npz:
   2`` for ``LAUNCH_STEPS`` steps (float32 compute): its losses;
 * ``resume``: internlm2's smoke state trained 2 steps on (4, 1), saved,
   one more step (the unbroken run), then restored onto (2, 2) through
-  ``tree_shardings`` and stepped again from the saved state.
+  ``tree_shardings`` and stepped again from the saved state;
+* ``serve``: each case of ``SERVE_CASES`` (float32 compute) with its
+  serving parameters laid out as the dry run lays them out (the case's
+  rule overrides), a prefill of ``serve_prompt(case)`` under the train
+  rules whose cache ``constrain_state`` lays out by the overrides, then
+  ``SERVE_STEPS`` decode steps of ``serve_tokens(case)``: every step's
+  logits, the cache's placements and the decode's collective bytes by
+  ``constrain`` site (``roofline.CostCounter``).
 
 The port's side imports neither jax nor ``repro``.
 """
@@ -55,6 +62,46 @@ LAUNCH_ARGS = ["--smoke", "--device", "cpu", "--steps", str(LAUNCH_STEPS),
                "--log-every", "100", "--global-batch", "8",
                "--seq-len", "32"]
 RESUME_ARCH = "internlm2-1.8b"
+# sharded serving: (name, arch, config changes, mesh, overrides, batch,
+# prompt length, cache length).  internlm2's 4 q heads divide the 4-way
+# model axis and its 2 kv heads do not: q heads split, cache head_dim
+# split.  qwen1.5 with 2 heads: q replicated and the cache head_dim split,
+# as its 20 heads are on 16.  zamba2 at batch 1 on (2, 2): the
+# long-context rules split kv_seq over 4 ranks in blocks of 8; 20 prompt
+# tokens and 4 steps leave the last block fully masked throughout and
+# write the steps' rows into the third block alone.  A prompt of 16 tokens
+# is one whole Mamba chunk: its prefill takes chunked_gla's unpadded path
+SERVE_CASES = [
+    ("internlm2", "internlm2-1.8b", {}, (1, 4), "decode", 4, 12, 24),
+    ("qwen1.5-2h", "qwen1.5-4b", dict(n_heads=2, n_kv_heads=2), (1, 4),
+     "decode", 4, 12, 24),
+    ("zamba2-long", "zamba2-7b", {}, (2, 2), "long", 1, 20, 32),
+    ("zamba2-chunk", "zamba2-7b", {}, (2, 2), "long", 1, 16, 32),
+]
+SERVE_STEPS = 4
+
+
+def serve_config(case):
+    from repro_torch import configs
+    _, arch, changes, *_ = case
+    return dataclasses.replace(f32_of(configs.get_smoke_config(arch)),
+                               **changes)
+
+
+def serve_prompt(case):
+    cfg, (*_, b, s, _) = serve_config(case), case
+    r = np.random.default_rng(20)
+    return r.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def serve_tokens(case):
+    """The decode steps' tokens (b, SERVE_STEPS), fixed in advance so that
+    both runs decode the same ones."""
+    cfg, (*_, b, _, _) = serve_config(case), case
+    r = np.random.default_rng(21)
+    return r.integers(0, cfg.vocab_size, (b, SERVE_STEPS)).astype(np.int32)
+
+
 # (shape, spec) on the (2, 2) ("data", "model") mesh
 PLACEMENT_CASES = [
     ((8, 6, 4), ("data", "model", None)),
@@ -234,6 +281,61 @@ def _resume(out, ckpt):
     dist.barrier()
 
 
+def _serve(out):
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import roofline as roof
+    from repro_torch.models import attention
+    from repro_torch.models import get_model
+    from repro_torch.sharding import rules
+    from repro_torch.train.train_step import shard_batch
+    # the bytes booked while the cache is written in place (any site)
+    counter, written = None, [0.0]
+    write = attention._write_rows
+
+    def counted_write(*args):
+        before = sum(counter.coll.values()) if counter else 0.0
+        write(*args)
+        if counter:
+            written[0] += sum(counter.coll.values()) - before
+    attention._write_rows = counted_write
+    for case in SERVE_CASES:
+        name, _, _, shape, kind, _, _, max_len = case
+        over = {"decode": rules.DECODE_OVERRIDES,
+                "long": rules.LONG_CONTEXT_OVERRIDES}[kind]
+        cfg = serve_config(case)
+        model = get_model(cfg)
+        cp = model.compute_params(model.init_params(SEED, device="cpu"))
+        mesh = mesh_lib.make_host_mesh(data=shape[0], model=shape[1],
+                                       device_type="cpu")
+        cp = rules.distribute_tree(cp, rules.tree_shardings(
+            mesh, model.param_specs(), cp, overrides=over))
+        prompt = shard_batch({"tokens": torch.from_numpy(
+            serve_prompt(case))}, mesh)
+        toks = torch.from_numpy(serve_tokens(case))
+        counter, written[0] = None, 0.0
+        with mesh_lib.use_mesh(mesh, state_overrides=over), \
+                implicit_replication(), torch.no_grad():
+            logits, state = model.prefill(cp, prompt, max_len)
+            out[f"{name}/prefill"] = _np(logits)
+            kv = state["shared_kv"]["k"] if "shared_kv" in state \
+                else state["k"]
+            out[f"{name}/cache_placements"] = np.asarray(
+                [repr(p) for p in kv.placements])
+            for i in range(SERVE_STEPS):
+                token = shard_batch({"token": toks[:, i:i + 1]},
+                                    mesh)["token"]
+                counter = roof.CostCounter()
+                with counter:
+                    logits, state = model.decode_step(cp, token, state)
+                out[f"{name}/step{i}"] = _np(logits)
+            out[f"{name}/sites"] = np.asarray(json.dumps(
+                counter.coll_by_site))
+            out[f"{name}/write_bytes"] = np.asarray(written[0])
+    attention._write_rows = write
+
+
 def rank(group, r, world, store, path):
     import logging
 
@@ -252,6 +354,8 @@ def rank(group, r, world, store, path):
             _train(out)
         elif group == "launcher":
             _launcher(out)
+        elif group == "serve":
+            _serve(out)
         elif group == "resume":
             with tempfile.TemporaryDirectory() as d:
                 shared = [d]

@@ -15,10 +15,9 @@ PACKAGES = ("core", "api", "engine", "kernels", "serve", "train", "configs",
 
 # (names only the reference exports, names only the port exports)
 DIFFERENCES = {
-    # the legacy ``use_kernel=`` alias that resolve_engine serves is not
-    # ported; the port's collective counter stands in for the reference's
-    # HLO check of the mesh executor's all-reduces
-    "engine": ({"resolve_engine"},
+    # the port's collective counter stands in for the reference's HLO
+    # check of the mesh executor's all-reduces
+    "engine": (set(),
                {"collective_counter", "record_collective",
                 "reset_collective_counter"}),
     # the age-weight ladder the port's streaming and mesh decay share
@@ -51,11 +50,13 @@ MODULE_DIFFERENCES = {
     # the spec as DTensor placements and a NamedSharding of its own; a
     # tree made DTensors (jax.device_put's role), a rank's block as a
     # DTensor, the mesh of a state, a decode state made inside a model
-    # laid out by the ambient rules, and the constrain site a traced
-    # collective is booked to (one process per rank needs all of these)
+    # laid out by the ambient rules, the constrain site a traced
+    # collective is booked to, and a constraint by placements read off
+    # another tensor (one process per rank needs all of these)
     "sharding.rules": (set(), {"NamedSharding", "placements",
                                "distribute_tree", "dtensor_of", "mesh_of",
-                               "constrain_state", "current_site"}),
+                               "constrain_state", "current_site",
+                               "relayout"}),
     # the parser and a run() that returns the losses, for tests and the
     # smoke script, as launch/serve.py has
     "launch.train": (set(), {"parser", "run"}),

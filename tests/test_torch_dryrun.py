@@ -15,6 +15,11 @@ it stays this process's default group until destroyed.  Held here:
   extrapolated from its 2- and 3-microbatch traces equals its whole trace;
 * a sharded product's collective bytes by kind and FLOPs equal a hand
   count;
+* where the kv heads do not divide "model" (internlm2's smoke config on
+  (1, 4)): attention's products on q-head blocks cost a quarter of the
+  unsharded model's, as counted by hand, and a decode cell moves no block
+  of its head_dim-split cache, all-reducing the partial logits instead
+  (by hand);
 * a (1, 1) dry run's FLOPs equal ``roofline.analyze`` of the real step on
   the same config and batch shape, and its state bytes the real state's;
 * ``analyze`` books a plain c10d all-reduce, and the ambient mesh of
@@ -154,6 +159,45 @@ def test_sharded_product_collectives_by_hand(cells):
     assert mm["coll"] == {"all-reduce": 2.0 * 8 * 12 * 4,
                           "reduce-scatter": 4.0 * 12 * 4,
                           "all-gather": 8.0 * 16 * 4}
+
+
+def test_attention_on_q_head_blocks_by_hand(cells):
+    """q heads split over "model" where the kv heads do not divide it:
+    each rank's two products, 2·b·(h/4)·s²·hd FLOPs each, and their
+    backward (two products of the same size each), against the unsharded
+    model's 2·b·h·s²·hd each."""
+    cfg = C.smoke(C.SPLIT_ARCH)
+    shape = C.shapes()["train"]
+    b, s = shape.global_batch, shape.seq_len
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    got = cells["attention_flops"]
+    assert got["unsharded"] == 3 * 2 * 2 * b * h * s * s * hd
+    assert got["sharded"] == 3 * 2 * 2 * b * (h // 4) * s * s * hd
+    assert 4 * got["sharded"] == got["unsharded"]
+
+
+def test_head_dim_split_decode_by_hand(cells):
+    """internlm2's smoke decode on (1, 4) (2 kv heads: the cache split by
+    head_dim over "model"): no collective at ``_on_local_blocks`` (the
+    cache gather), and in each layer one all-reduce of the float32
+    (b, h, 1, skv) partial logits, 2 × b·h·skv·4 bytes on the ring's wire;
+    q's and the output's moves into and out of the head_dim split are at
+    most q's bytes each."""
+    split = cells["split_decode"]
+    meta, by = split["meta"], split["by_site_kind"]
+    cfg = C.smoke(C.SPLIT_ARCH)
+    shape = C.shapes()["decode"]
+    b, skv = shape.global_batch, shape.seq_len
+    h, hd, layers = cfg.n_heads, cfg.resolved_head_dim, cfg.n_layers
+    esize = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                        ).element_size()
+    assert "attention.py:_on_local_blocks" not in by
+    site = by["attention.py:_over_head_dim"]
+    assert site["all-reduce"] == layers * 2.0 * b * h * skv * 4
+    moves = sum(v for k, v in site.items() if k != "all-reduce")
+    assert 0 < moves <= layers * 2 * b * h * hd * esize
+    assert sum(meta["coll_by_site"].values()) == pytest.approx(
+        meta["coll_bytes_per_dev"], rel=1e-12, abs=0)
 
 
 def test_one_rank_dry_run_equals_the_real_step(cells):

@@ -3246,8 +3246,12 @@ SHARD_TIMEOUT = 400           # 17c's dry runs, each
 SHARD_DRYRUN = (("internlm2-1.8b", "train_4k"), ("qwen1.5-4b", "decode_32k"),
                 ("zamba2-7b", "long_500k"))
 # 17c's bounds on those cells (the dry run's per-rank figures; the
-# reference's on the same host are 1.0725e14 FLOPs, 2.50 GB and 3.06 GB)
+# reference's on the same host are 1.0725e14 FLOPs, 2.50 GB and 3.06 GB).
+# internlm2's eager-order peak a rank (state, batch and the step's own
+# storages) was 59.11 GB while the gold-label gather's backward made its
+# zeros at the global batch (16 × the rank's 3.03 GB of float32 logits)
 SHARD_TRAIN_FLOPS_MAX = 1.5e14
+SHARD_TRAIN_PEAK_MAX = 20e9
 SHARD_DECODE_COLL_MAX = 5e9
 SHARD_LONG_COLL_MAX = 6.1e9
 
@@ -3500,18 +3504,21 @@ def _shard_dryrun(c, train_out):
 
 def _shard_bounds(cells):
     """17c's bounds: internlm2's train FLOPs a rank (attention on q-head
-    blocks); qwen's decode collective bytes, with nothing at
-    ``_on_local_blocks`` (no gather of the head_dim-split cache); zamba2's
-    long-context bytes (the in-place cache writes booked 207.6 GB inside
-    DTensor's ops before), with nothing at ``_on_local_blocks`` and, at
-    ``_write_rows``, only the new K/V rows gathered for their owner: k and
-    v of 13 shared-block applications, 1 · kv_heads · head_dim bf16
-    values each."""
+    blocks) and its eager-order peak a rank (the gold-label gather's
+    backward at the rank's rows); qwen's decode collective bytes, with
+    nothing at ``_on_local_blocks`` (no gather of the head_dim-split
+    cache); zamba2's long-context bytes (the in-place cache writes booked
+    207.6 GB inside DTensor's ops before), with nothing at
+    ``_on_local_blocks`` and, at ``_write_rows``, only the new K/V rows
+    gathered for their owner: k and v of 13 shared-block applications,
+    1 · kv_heads · head_dim bf16 values each."""
     from repro_torch import configs
     from repro_torch.models import zamba2
     train = cells[SHARD_DRYRUN[0]]
     require(train["flops_per_dev"] <= SHARD_TRAIN_FLOPS_MAX,
             f"17c {SHARD_DRYRUN[0]} FLOPs {train['flops_per_dev']:.4e}")
+    require(train["peak_memory_gb"] * 1e9 <= SHARD_TRAIN_PEAK_MAX,
+            f"17c {SHARD_DRYRUN[0]} peak {train['peak_memory_gb']:.2f} GB")
     dec = cells[SHARD_DRYRUN[1]]
     sites = dec["coll_by_site"]
     require(dec["coll_bytes_per_dev"] <= SHARD_DECODE_COLL_MAX

@@ -146,8 +146,8 @@ class CostCounter(TorchDispatchMode):
     collective reads its tensor inputs and writes its outputs once: an
     unfused upper bound on memory traffic) and, with ``track_memory``,
     ``peak_bytes``: the most bytes held at once by storages the ops
-    created (views and in-place results add nothing; a storage counts
-    until it is freed).
+    created (views, in-place results and meta tensors add nothing; a
+    storage counts until it is freed).
 
     On a DTensor op the mode steps aside, so it counts the local ops the
     DTensor runs on this rank's blocks; the global-shape ops DTensor runs
@@ -216,6 +216,8 @@ class CostCounter(TorchDispatchMode):
             self.op_bytes += _nbytes((args, kwargs)) + _nbytes(out)
         if self.track_memory:
             for t in _tensors(out):
+                if t.device.type == "meta":         # holds no memory
+                    continue
                 st = t.untyped_storage()
                 if st in self._seen:
                     continue

@@ -15,8 +15,10 @@ in that dtype is free, which is what ``compute_copy`` relies on).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 import types
 
 import torch
@@ -26,6 +28,31 @@ from torch.utils import checkpoint as ckpt
 
 
 # ---------------------------------------------------------------- init utils
+_LEAF = threading.local()
+
+
+def param(t) -> nn.Parameter:
+    """``t`` as a parameter leaf (no gradient): every block makes its
+    leaves through here, so an enclosing ``leaf_hook`` sees each one."""
+    p = nn.Parameter(t, requires_grad=False)
+    hook = getattr(_LEAF, "hook", None)
+    return p if hook is None else hook(p)
+
+
+@contextlib.contextmanager
+def leaf_hook(fn):
+    """Inside, each leaf a block makes is replaced by ``fn(leaf)`` as soon
+    as it is made, before the next one is drawn (in this thread): the
+    leaves come in the order the blocks make them, which is the same on
+    the meta device as on any other."""
+    prev = getattr(_LEAF, "hook", None)
+    _LEAF.hook = fn
+    try:
+        yield
+    finally:
+        _LEAF.hook = prev
+
+
 def dense_init(shape, in_axes=(0,), *, generator=None, device=None,
                dtype=torch.float32, scale=1.0) -> nn.Parameter:
     """Truncated-normal fan-in init (LeCun-style), drawn from ``generator``
@@ -37,22 +64,19 @@ def dense_init(shape, in_axes=(0,), *, generator=None, device=None,
     if w.device.type != "meta":
         nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
         w.mul_(scale / math.sqrt(fan_in))
-    return nn.Parameter(w, requires_grad=False)
+    return param(w)
 
 
 def zeros(shape, *, device=None, dtype=torch.float32) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return param(torch.zeros(shape, dtype=dtype, device=device))
 
 
 def ones(shape, *, device=None, dtype=torch.float32) -> nn.Parameter:
-    return nn.Parameter(torch.ones(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return param(torch.ones(shape, dtype=dtype, device=device))
 
 
 def full(shape, value, *, device=None, dtype=torch.float32) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device),
-                        requires_grad=False)
+    return param(torch.full(shape, value, dtype=dtype, device=device))
 
 
 def make_generator(generator, device) -> torch.Generator:
@@ -116,7 +140,7 @@ class Embedding(nn.Module):
         t = torch.empty((vocab, dim), dtype=dtype, device=device)
         if t.device.type != "meta":
             t.normal_(generator=generator)
-        self.table = nn.Parameter(t, requires_grad=False)
+        self.table = param(t)
 
 
 def embed_specs():

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.rules import constrain
+from repro_torch.sharding.rules import constrain, dtensor_of
 
 SUB = 16  # sub-block (secondary chunk) size
 
@@ -84,11 +84,54 @@ def chunked_gla(q, k, v, logw, *, u=None, initial_state=None,
                 chunk: int = 64, mode: str = "inclusive"):
     """Returns (y: (B, H, T, dv) in q's dtype, final_state: (B, H, dk, dv)
     float32).  A ragged T is padded inertly to a multiple of ``chunk``:
-    q = k = v = 0 add nothing, logw = 0 passes the state through."""
-    b, h, t, dk = q.shape
-    dv = v.shape[-1]
+    q = k = v = 0 add nothing, logw = 0 passes the state through.  Under
+    a mesh it runs on each rank's blocks (``_on_local_blocks``)."""
     if mode not in ("inclusive", "bonus"):
         raise ValueError(mode)
+    from repro_torch.launch.mesh import current_mesh
+    if current_mesh() is not None:
+        return _on_local_blocks(q, k, v, logw, u=u,
+                                initial_state=initial_state, chunk=chunk,
+                                mode=mode)
+    return _chunked(q, k, v, logw, u=u, initial_state=initial_state,
+                    chunk=chunk, mode=mode)
+
+
+def _on_local_blocks(q, k, v, logw, *, u, initial_state, chunk, mode):
+    """``chunked_gla`` under a mesh, on each rank's own blocks: every
+    (batch row, head) pair runs its recurrence alone, so once q, k, v,
+    logw and the initial state are laid out with the batch over the data
+    axes, the heads over "model" and the sequence whole (a DTensor may
+    arrive split along it), the plain recurrence on the local blocks
+    computes this rank's block exactly.  DTensor's own strategies fail on
+    some torch releases (the batched products flatten a sharded head
+    axis; the pad of a ragged sequence reaches its redistribute planner).
+    The redistributes are ``constrain``s; ``to_local``/``from_local``
+    carry the gradients, ``u``'s a partial sum over the batch's split."""
+    from torch.distributed.tensor import Partial, Shard
+    b, h, t, _ = q.shape
+    con = lambda a: constrain(a, "batch", "heads", None, None)
+    q, k, v = con(q), con(k), con(v)
+    logw = con(logw.expand(b, h, t, logw.shape[-1]))
+    mesh, split = q.device_mesh, q.placements
+    if initial_state is not None:
+        initial_state = con(initial_state).to_local()
+    if u is not None:
+        u = constrain(u, "heads", None)
+        u = u.to_local(grad_placements=[
+            Partial() if pl == Shard(0) else up
+            for pl, up in zip(split, u.placements)])
+    y, s = _chunked(q.to_local(), k.to_local(), v.to_local(),
+                    logw.to_local(), u=u, initial_state=initial_state,
+                    chunk=chunk, mode=mode)
+    return (dtensor_of(y, mesh, split, (b, h, t, v.shape[-1])),
+            dtensor_of(s, mesh, split, (b, h) + tuple(s.shape[2:])))
+
+
+def _chunked(q, k, v, logw, *, u, initial_state, chunk, mode):
+    """``chunked_gla`` on plain tensors."""
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
     t_orig = t
     pad = (-t) % chunk
     logw = logw.expand(b, h, t, logw.shape[-1])
@@ -100,12 +143,9 @@ def chunked_gla(q, k, v, logw, *, u=None, initial_state=None,
     f32 = torch.float32
     lw = logw.to(f32).expand(b, h, t, dk)
 
-    # the sequence whole on every rank (a DTensor may arrive split along
-    # it): the cumsum below runs along it
-    con = lambda a: constrain(a.to(f32), "batch", "heads", None, None)
-    resh = lambda a, d: a.reshape(b, h, nc, chunk, d)
-    qc, kc, vc = resh(con(q), dk), resh(con(k), dk), resh(con(v), dv)
-    lwc = resh(con(lw), dk)
+    resh = lambda a, d: a.to(f32).reshape(b, h, nc, chunk, d)
+    qc, kc, vc = resh(q, dk), resh(k, dk), resh(v, dv)
+    lwc = resh(lw, dk)
     cum = torch.cumsum(lwc, dim=-2)                    # inclusive cumsum
     total = cum[..., -1:, :]                           # (B, H, nc, 1, dk)
 

@@ -53,9 +53,7 @@ class Mamba2(nn.Module):
         self.conv_w = cm.dense_init((cfg.conv_width, di + 2 * ds), (0,),
                                     scale=1.0, **kw)
         self.conv_b = cm.zeros((di + 2 * ds,), **fw)
-        self.a_log = nn.Parameter(torch.log(torch.linspace(1.0, 16.0, nh,
-                                                           **fw)),
-                                  requires_grad=False)
+        self.a_log = cm.param(torch.log(torch.linspace(1.0, 16.0, nh, **fw)))
         self.dt_bias = cm.zeros((nh,), **fw)
         self.d_skip = cm.ones((nh,), **fw)
         self.norm = cm.RMSNorm(di, **fw)

@@ -95,6 +95,31 @@ def route(probs, top_k: int):
     return gate_idx, gate_vals / gate_vals.sum(-1, keepdim=True)
 
 
+def _combine(combine, expert_out):
+    """(g,s,d): Σ over (e,c) of combine (g,s,e,c) · expert_out (e,g,c,d).
+    Under a mesh the product runs on each rank's blocks, the groups and
+    the experts split alike in both (DTensor's strategy for it flattens a
+    sharded expert axis, which some torch releases refuse); where the
+    experts are split, each rank's result is a partial sum over them,
+    which the constraint after it reduces."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(expert_out, DTensor):
+        return torch.einsum("gsec,egcd->gsd", combine, expert_out)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.sharding.rules import dtensor_of
+    combine = constrain(combine, "batch", None, "experts", None)
+    expert_out = constrain(expert_out, "experts", "batch", None, None)
+    out = torch.einsum("gsec,egcd->gsd", combine.to_local(),
+                       expert_out.to_local())
+    split = [Shard(0) if pl == Shard(0) else
+             Partial() if pl == Shard(2) else Replicate()
+             for pl in combine.placements]
+    g, s = combine.shape[:2]
+    out = dtensor_of(out, combine.device_mesh, split,
+                     (g, s, expert_out.shape[-1]))
+    return constrain(out, "batch", None, None)
+
+
 def apply(p, cfg: MoEConfig, x):
     """x: (b, s, d) -> (out, aux_loss). Routing in float32."""
     b, s, d = x.shape
@@ -140,8 +165,7 @@ def apply(p, cfg: MoEConfig, x):
     weights = torch.einsum("gske,gsk->gse", onehot.to(gate_vals.dtype),
                            gate_vals).to(x.dtype)
     combine = disp * weights[..., None]                       # (g,s,e,c)
-    out = torch.einsum("gsec,egcd->gsd", combine, expert_out)
-    out = out.reshape(b, s, d)
+    out = _combine(combine, expert_out).reshape(b, s, d)
 
     # Switch aux loss: e * Σ_e (frac tokens to e) * (mean router prob e)
     frac = torch.mean(onehot.float().sum(dim=2), dim=(0, 1))

@@ -157,10 +157,18 @@ class NamedSharding:
 
     def distribute(self, t: torch.Tensor):
         """``t`` (the whole tensor, the same on every rank) as a DTensor:
-        each rank keeps its own block, with no communication."""
+        each rank keeps its own block, with no communication.  A block
+        that is a part of ``t`` is copied into a storage of its own, so
+        that ``t`` is freed with its last other reference."""
         from torch.distributed.tensor import distribute_tensor
-        return distribute_tensor(t, self.mesh, self.placements,
-                                 src_data_rank=None)
+        out = distribute_tensor(t, self.mesh, self.placements,
+                                src_data_rank=None)
+        local = out.to_local()
+        if local.untyped_storage().nbytes() > (local.numel()
+                                               * local.element_size()):
+            out = dtensor_of(local.clone(), self.mesh, self.placements,
+                             t.shape)
+        return out
 
 
 def _is_spec(x) -> bool:

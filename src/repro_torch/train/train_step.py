@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import use_mesh
+from repro_torch.models import common as cm
 from repro_torch.models.registry import ModelAPI
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.sharding import rules
@@ -41,14 +42,37 @@ def cross_entropy(logits, labels, loss_mask):
     """logits (B,S,V) any float dtype; labels (B,S) int; mask (B,S).
     Returns (mean masked NLL, mean masked logsumexp²), float32.  Under a
     mesh the logits are gathered whole over the vocab first: DTensor has no
-    sharding strategy for the gold-label gather on a sharded vocab."""
+    sharding strategy for the gold-label gather on a sharded vocab; the
+    gold logits are then taken on each rank's own rows."""
+    from torch.distributed.tensor import DTensor
     logits = constrain(logits, "batch", None, None).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        gold = _gold_on_local_rows(logits, labels)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold
     mask = loss_mask.to(torch.float32)
     denom = torch.clamp(torch.sum(mask), min=1.0)
     return torch.sum(nll * mask) / denom, torch.sum(lse * lse * mask) / denom
+
+
+def _gold_on_local_rows(logits, labels):
+    """The gold logits of the DTensor ``logits`` (its vocab whole), taken
+    on each rank's own rows with its rows of ``labels`` (sliced from a
+    replicated or plain ``labels``): DTensor's gather runs its backward at
+    the global batch, zeros of every rank's rows on each rank.  Each
+    rank's rows are its own, so the local gradient is its block's."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = logits.device_mesh
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    labels = rules.relayout(labels, logits.placements)
+    gold = torch.gather(logits.to_local(), -1,
+                        labels.to_local().long()[..., None])[..., 0]
+    return rules.dtensor_of(gold, mesh, logits.placements,
+                            tuple(logits.shape[:-1]))
 
 
 def _named(params) -> dict[str, torch.Tensor]:
@@ -81,21 +105,59 @@ def init_train_state(model: ModelAPI, rng=0, device=None, *, mesh=None,
 
     With ``mesh`` every leaf is a DTensor laid out by ``shardings``
     (default: ``train_state_specs`` through ``rules.tree_shardings``).  The
-    parameters are drawn whole from the seed on every rank and then each
-    rank keeps its blocks, so a sharded run starts from the bits of a
-    single-process one; the AdamW moments take the parameters'
-    placements, ``count`` and ``step`` are replicated."""
-    params = model.init_params(rng, dtype=torch_dtype(model.cfg.param_dtype),
-                               device=resolve_device(device))
-    dev = next(params.parameters()).device
-    state = {"params": params, "opt": opt_lib.init_state(params),
-             "step": torch.zeros((), dtype=torch.int32, device=dev)}
-    if mesh is None:
-        return state
+    parameters are drawn from the seed on every rank as without a mesh,
+    leaf by leaf, each rank keeping its block of a leaf before the next is
+    drawn, so a sharded run starts from the bits of a single-process one
+    and a rank holds at most its share of the state and one leaf drawn
+    whole; the AdamW moments take the parameters' placements, ``count``
+    and ``step`` are replicated."""
+    dtype = torch_dtype(model.cfg.param_dtype)
+    dev = resolve_device(device)
+    if mesh is not None:
+        return _init_on_mesh(model, rng, dtype, dev, mesh, shardings)
+    return _state_of(model.init_params(rng, dtype=dtype, device=dev))
+
+
+def _init_on_mesh(model: ModelAPI, rng, dtype, device, mesh, shardings):
+    """``init_train_state(mesh=)``: the model is made once on the meta
+    device to learn the order in which it makes its leaves and their
+    names, then made for real with each leaf replaced, as soon as it is
+    drawn, by this rank's block of it (``common.leaf_hook``)."""
+    made = []
+    with cm.leaf_hook(lambda p: made.append(p) or p):
+        abstract = model.abstract_params()
+    names = {id(p): n for n, p in abstract.named_parameters()}
+    order = iter([(names[id(p)], tuple(p.shape)) for p in made])
     if shardings is None:
         shardings = rules.tree_shardings(mesh, train_state_specs(model),
-                                         state)
-    return rules.distribute_tree(state, shardings)
+                                         _state_of(abstract))
+    psh = shardings["params"]
+
+    def place(p):
+        name, shape = next(order)
+        if tuple(p.shape) != shape:
+            raise ValueError(f"leaf {name}: drawn {tuple(p.shape)}, "
+                             f"made on the meta device as {shape}")
+        return nn.Parameter(psh[name].distribute(p.detach()),
+                            requires_grad=False)
+
+    with cm.leaf_hook(place):
+        params = model.init_params(rng, dtype=dtype, device=device)
+    if next(order, None) is not None:
+        raise ValueError("the model made fewer leaves than on the meta "
+                         "device")
+    state = _state_of(params)          # mu and nu: zeros of local blocks
+    state["opt"]["count"] = shardings["opt"]["count"].distribute(
+        state["opt"]["count"])
+    state["step"] = shardings["step"].distribute(state["step"])
+    return state
+
+
+def _state_of(params):
+    """The train state around ``params`` (zero moments like them)."""
+    dev = next(params.parameters()).device
+    return {"params": params, "opt": opt_lib.init_state(params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def state_shardings(model: ModelAPI, mesh, state=None, *, overrides=None):
@@ -140,9 +202,7 @@ def shard_batch(batch: dict, mesh, microbatches: int = 1) -> dict:
 
 def abstract_train_state(model: ModelAPI):
     """The train state on the meta device: shapes and dtypes only."""
-    params = model.abstract_params()
-    return {"params": params, "opt": opt_lib.init_state(params),
-            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+    return _state_of(model.abstract_params())
 
 
 def train_state_specs(model: ModelAPI):

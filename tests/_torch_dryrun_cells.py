@@ -14,7 +14,10 @@ ranks, where internlm2's 2 kv heads do not divide "model" and its 4 q
 heads do: its decode cell (the cache split by head_dim) with its
 collective bytes by site and kind, and the FLOPs of ``attention._sdpa``
 forward and backward on q, k and v laid out as ``_qkv`` lays them out,
-beside the same without a mesh.  On 256 fake ranks (16 × 16) one cell;
+beside the same without a mesh.  On the (4, 1) mesh of the same ranks
+(the rows split 4 ways, which (1, 4) does not split): internlm2's train
+cell with the gold-label gather on each rank's rows and left to
+DTensor.  On 256 fake ranks (16 × 16) one cell;
 on 1 fake rank the (1, 1) cell ``ONE_RANK`` that the test holds against
 ``roofline.analyze`` of the real step.  Writes one JSON object.
 """
@@ -74,6 +77,50 @@ def split_decode(mesh):
     finally:
         roof.collective_bytes = orig
     return {"meta": meta, "by_site_kind": by}
+
+
+def gold_gather(mesh):
+    """SPLIT_ARCH's train cell on ``mesh`` (one microbatch), traced twice:
+    with ``cross_entropy`` as it is, and with its gold-label gather left
+    to DTensor (``torch.gather`` on the DTensors, the path before the
+    gather ran on each rank's rows).  Each trace's step peak, FLOPs,
+    collective bytes, and the largest storage an op made while autograd
+    ran the gather's backward (``GatherBackward0``)."""
+    import torch
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import roofline as roof
+    from repro_torch.train import train_step
+    largest = [0]
+    dispatch = roof.CostCounter.__torch_dispatch__
+
+    def probed(self, func, types, args=(), kwargs=None):
+        out = dispatch(self, func, types, args, kwargs)
+        node = torch._C._current_autograd_node()
+        if node is not None and node.name() == "GatherBackward0":
+            for t in roof._tensors(out):
+                largest[0] = max(largest[0], t.untyped_storage().nbytes())
+        return out
+
+    def by_dtensor(logits, labels):
+        return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+
+    out = {}
+    local = train_step._gold_on_local_rows
+    roof.CostCounter.__torch_dispatch__ = probed
+    try:
+        for path, gold in (("local_rows", local), ("dtensor", by_dtensor)):
+            train_step._gold_on_local_rows = gold
+            largest[0] = 0
+            _, meta = dr.lower_cell(SPLIT_ARCH, shapes()["train"], mesh,
+                                    cfg=smoke(SPLIT_ARCH), microbatches=1)
+            out[path] = {"peak": meta["step_peak_bytes_per_dev"],
+                         "flops": meta["flops_per_dev"],
+                         "coll": meta["coll_bytes_per_dev"],
+                         "gather_grad_largest": largest[0]}
+    finally:
+        roof.CostCounter.__torch_dispatch__ = dispatch
+        train_step._gold_on_local_rows = local
+    return out
 
 
 def attention_flops(mesh, b, s):
@@ -171,6 +218,10 @@ def main(path):
         b, s = shapes()["train"].global_batch, shapes()["train"].seq_len
         out["attention_flops"] = {"sharded": attention_flops(narrow, b, s),
                                   "unsharded": attention_flops(None, b, s)}
+        # the gold-label gather's backward on the data axis: (1, 4) splits
+        # no rows, so the same 4 ranks as (4, 1)
+        rows = mesh_lib.make_host_mesh(data=4, model=1, device_type="cpu")
+        out["gold_gather"] = gold_gather(rows)
     finally:
         dist.destroy_process_group()
 

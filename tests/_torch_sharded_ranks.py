@@ -20,6 +20,8 @@ running one GROUP of checks; rank 0 writes OUT.npz:
   compute) on meshes (4, 1), (2, 2) and (1, 4), from
   ``init_train_state(model, SEED, mesh=)`` and ``shard_batch`` of
   ``batch(cfg)``: loss, grad_norm, the whole parameters and mu after it;
+  before it, each rank's blocks of the initial state against the
+  single-process state's, and the bytes the call held at its peak;
 * ``launcher``: ``repro_torch.launch.train.run`` with ``--model-parallel
   2`` for ``LAUNCH_STEPS`` steps (float32 compute): its losses;
 * ``resume``: internlm2's smoke state trained 2 steps on (4, 1), saved,
@@ -205,11 +207,68 @@ def _placements(out):
             out[f"{i}/{r}"] = blk
 
 
+def _init_on_mesh(model, mesh):
+    """``init_train_state(model, SEED, mesh=)`` on this rank, probed.
+    Returns the state and, from every rank (gathered), ``equal``: its
+    blocks of the parameters, mu and nu, and its count and step, are
+    bit-equal to the single-process state's blocks as torch's
+    ``distribute_tensor`` cuts them, in ``state_shardings``' placements;
+    ``peak``: the most bytes live at once during the call
+    (``CostCounter``'s eager-order peak); ``state``: the rank's state
+    bytes; ``leaf``: the same peak of drawing the largest leaf whole
+    alone (``dense_init``, its temporaries included)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch import roofline as roof
+    from repro_torch.models import common as cm
+    from repro_torch.train import init_train_state
+    from repro_torch.train.train_step import state_shardings
+    counter = roof.CostCounter(track_memory=True)
+    with counter:
+        state = init_train_state(model, SEED, device="cpu", mesh=mesh)
+    whole = init_train_state(model, SEED, device="cpu")
+    sh = state_shardings(model, mesh)
+
+    def same(got, want, sharding):
+        block = distribute_tensor(want.detach(), mesh, sharding.placements,
+                                  src_data_rank=None).to_local()
+        return (tuple(got.placements) == tuple(sharding.placements)
+                and torch.equal(got.to_local(), block))
+
+    equal = all(
+        same(tree[n], ref[n], sh_tree[n])
+        for tree, ref, sh_tree in (
+            (dict(state["params"].named_parameters()),
+             dict(whole["params"].named_parameters()), sh["params"]),
+            (state["opt"]["mu"], whole["opt"]["mu"], sh["opt"]["mu"]),
+            (state["opt"]["nu"], whole["opt"]["nu"], sh["opt"]["nu"]))
+        for n in ref)
+    equal = (equal and same(state["opt"]["count"], whole["opt"]["count"],
+                            sh["opt"]["count"])
+             and same(state["step"], whole["step"], sh["step"]))
+    leaves = (list(state["params"].parameters())
+              + list(state["opt"]["mu"].values())
+              + list(state["opt"]["nu"].values())
+              + [state["opt"]["count"], state["step"]])
+    nbytes = sum(t.to_local().numel() * t.element_size() for t in leaves)
+    big = max(model.abstract_params().parameters(), key=lambda p: p.numel())
+    draw = roof.CostCounter(track_memory=True)
+    with draw:
+        cm.dense_init(tuple(big.shape),
+                      generator=torch.Generator().manual_seed(SEED))
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, (equal, counter.peak_bytes, nbytes,
+                                 draw.peak_bytes))
+    init = {k: np.asarray([g[i] for g in got])
+            for i, k in enumerate(("equal", "peak", "state", "leaf"))}
+    return state, init
+
+
 def _train(out):
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import get_model
-    from repro_torch.train import TrainConfig, init_train_state, \
-        make_train_step
+    from repro_torch.train import TrainConfig, make_train_step
     from repro_torch.train.train_step import shard_batch
     for shape in MESHES:
         mesh = mesh_lib.make_host_mesh(data=shape[0], model=shape[1],
@@ -218,12 +277,14 @@ def _train(out):
         for arch in TRAIN_ARCHS:
             cfg = f32_config(arch)
             model = get_model(cfg)
-            state = init_train_state(model, SEED, device="cpu", mesh=mesh)
+            state, init = _init_on_mesh(model, mesh)
             placed = all(type(p).__name__ == "DTensor"
                          for p in state["params"].parameters())
             state, m = make_train_step(model, TrainConfig())(
                 state, shard_batch(tensors(batch(cfg)), mesh))
             key = f"{arch}/{tag}"
+            for k, v in init.items():
+                out[f"{key}/init_{k}"] = v
             out[f"{key}/all_dtensor"] = np.asarray(placed)
             out[f"{key}/loss"] = _np(m["loss"])
             out[f"{key}/grad_norm"] = _np(m["grad_norm"])

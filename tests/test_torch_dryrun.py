@@ -20,6 +20,9 @@ it stays this process's default group until destroyed.  Held here:
   unsharded model's, as counted by hand, and a decode cell moves no block
   of its head_dim-split cache, all-reducing the partial logits instead
   (by hand);
+* the gold-label gather's backward (internlm2's smoke train cell on
+  (4, 1)) makes its zeros at the rank's rows, not the global batch's, and
+  the step's peak falls by the hand count;
 * a (1, 1) dry run's FLOPs equal ``roofline.analyze`` of the real step on
   the same config and batch shape, and its state bytes the real state's;
 * ``analyze`` books a plain c10d all-reduce, and the ambient mesh of
@@ -198,6 +201,29 @@ def test_head_dim_split_decode_by_hand(cells):
     assert 0 < moves <= layers * 2 * b * h * hd * esize
     assert sum(meta["coll_by_site"].values()) == pytest.approx(
         meta["coll_bytes_per_dev"], rel=1e-12, abs=0)
+
+
+def test_gold_label_gather_backward_at_the_rank_rows(cells):
+    """internlm2's smoke train cell on (4, 1), its rows split over 4 data
+    ranks (on (1, 4) a rank's rows are the whole batch, so the fault
+    cannot show there).  The gold-label gather's backward makes its
+    largest storage at the rank's float32 logits block, (b/4)·s·V·4
+    bytes, where DTensor's own gather makes it at the global batch's,
+    4 × that.  The step's eager-order peak then falls by at least
+    (4 - 2) blocks less 1 KiB: the gather's zeros shrink by 3 blocks,
+    and the peak moves to the logsumexp backward, whose exp temporary
+    holds one block more than the gather's moment; the KiB is the rank's
+    gold logits and label rows.  FLOPs and collective bytes stay."""
+    got = cells["gold_gather"]
+    cfg = C.smoke(C.SPLIT_ARCH)
+    shape = C.shapes()["train"]
+    block = shape.global_batch // 4 * shape.seq_len * cfg.vocab_size * 4
+    local, dtensor = got["local_rows"], got["dtensor"]
+    assert local["gather_grad_largest"] == block
+    assert dtensor["gather_grad_largest"] == 4 * block
+    assert dtensor["peak"] - local["peak"] >= (4 - 2) * block - 1024
+    assert local["flops"] == dtensor["flops"]
+    assert local["coll"] == dtensor["coll"]
 
 
 def test_one_rank_dry_run_equals_the_real_step(cells):

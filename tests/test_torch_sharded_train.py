@@ -24,6 +24,12 @@ hung rank fails the test instead of the run):
   bit for bit and replays step 3 as the unbroken run does (loss within
   1e-5, parameters by the rule above).
 
+The ``train`` group also holds ``init_train_state(mesh=)``: each rank's
+blocks bit-equal to the single-process state's, and the bytes it holds
+at once bounded by its share of the state plus one leaf drawn whole.  In
+this process, on a 1-rank mesh: the MoE combine and ``chunked_gla``'s
+ragged pad receive plain tensors (their local-block form).
+
 Without a mesh, ``constrain`` is the identity: every model's outputs are
 bit-equal with it replaced by ``lambda x, *a, **k: x``.
 """
@@ -145,6 +151,26 @@ def test_sharded_step_equals_the_single_process_step(train_ranks, arch):
                 assert _rel(got, _np(mu)) <= TOL, (key, n)
 
 
+@pytest.mark.parametrize("arch", R.TRAIN_ARCHS)
+def test_sharded_init_draws_each_rank_blocks_alone(train_ranks, arch):
+    """``init_train_state(mesh=)`` on (4, 1), (2, 2) and (1, 4): every
+    rank's blocks of the parameters, mu and nu (and its count and step)
+    are bit-equal to the matching blocks of the single-process
+    ``init_train_state(model, SEED)``, and the most bytes live at once
+    during the call (``CostCounter``'s eager-order peak) are at most the
+    rank's state bytes plus the peak of drawing the model's largest leaf
+    whole (its truncated-normal draw's temporaries included), where the
+    whole state drawn on every rank first held 3 × the float32
+    parameters."""
+    for shape in R.MESHES:
+        key = f"{arch}/{shape[0]}x{shape[1]}"
+        assert train_ranks[f"{key}/init_equal"].all(), key
+        peak = train_ranks[f"{key}/init_peak"]
+        bound = train_ranks[f"{key}/init_state"] + train_ranks[
+            f"{key}/init_leaf"]
+        assert (peak <= bound).all(), (key, peak, bound)
+
+
 def test_model_parallel_launcher_equals_one_process(monkeypatch):
     got = run_ranks("launcher")
     assert tuple(got["mesh"]) == (2, 2)
@@ -173,6 +199,55 @@ def test_resume_onto_another_mesh_replays_the_unbroken_run():
         want = got[f"unbroken/p/{n}"]
         err = np.abs(got[f"resumed/p/{n}"] - want).max()
         assert err <= 2 * lr + TOL * np.abs(want).max(), (n, err)
+
+
+# ------------------------------------- local blocks under a mesh, any torch
+def test_moe_combine_and_gla_pad_take_plain_tensors(tmp_path, monkeypatch):
+    """Under a mesh the MoE's combine product and ``chunked_gla``'s pad of a
+    ragged sequence run on each rank's blocks: they receive plain
+    tensors, never DTensors.  DTensor's own strategies for them fail on
+    torch 2.11 (the combine flattens a sharded expert axis; the pad's
+    redistribute planner raises an ``IndexError`` with the sequence
+    split), so this holds the repair on any torch.  phi3.5's and zamba2's
+    smoke train steps on a 1-rank (1, 1) mesh, zamba2 at 20 tokens a row
+    (chunk 16: padded)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor
+    from repro_torch.train.train_step import shard_batch
+    seen = {"combine": [], "pad": []}
+    einsum, pad = torch.einsum, F.pad
+
+    def spy_einsum(eq, *ops):
+        if eq == "gsec,egcd->gsd":
+            seen["combine"].append(any(isinstance(o, DTensor) for o in ops))
+        return einsum(eq, *ops)
+
+    def spy_pad(a, *args, **kwargs):
+        if sys._getframe(1).f_code.co_filename.endswith("gla.py"):
+            seen["pad"].append(isinstance(a, DTensor))
+        return pad(a, *args, **kwargs)
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=timedelta(seconds=60))
+    try:
+        mesh = mesh_lib.make_host_mesh(data=1, model=1, device_type="cpu")
+        monkeypatch.setattr(torch, "einsum", spy_einsum)
+        monkeypatch.setattr(F, "pad", spy_pad)
+        for arch, s in (("phi3.5-moe-42b-a6.6b", 32), ("zamba2-7b", 20)):
+            cfg = R.f32_config(arch)
+            model = get_model(cfg)
+            state = init_train_state(model, R.SEED, device="cpu", mesh=mesh)
+            _, m = make_train_step(model, TrainConfig())(
+                state, shard_batch(R.tensors(R.batch(cfg, s=s)), mesh))
+            assert np.isfinite(float(m["loss"].full_tensor())), arch
+    finally:
+        dist.destroy_process_group()
+    assert seen["combine"] and not any(seen["combine"]), seen
+    assert seen["pad"] and not any(seen["pad"]), seen
 
 
 # ------------------------------------------------ constrain without a mesh

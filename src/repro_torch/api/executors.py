@@ -29,6 +29,7 @@ from repro_torch.core import solve as solve_lib
 from repro_torch.core import streaming as streaming_lib
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.engine import plan as plan_lib
+from repro_torch.obs import spans
 
 
 def spec_from_legacy(degree, *, method: str | None = None,
@@ -97,8 +98,10 @@ def _fit_lse_fixed(x: torch.Tensor, y: torch.Tensor,
     plan = spec.plan(tuple(x.shape), x.dtype, weighted=weights is not None,
                      device=x.device)
     pol = plan.numerics
-    dom = _spec_domain(spec, x, pol.normalize)
-    m = engine_lib.compute_moments(plan, dom.apply(x), y, w)
+    with spans.span("fit.domain"):
+        dom = _spec_domain(spec, x, pol.normalize)
+        xd = dom.apply(x)
+    m = engine_lib.compute_moments(plan, xd, y, w)
     ms = m.regularized(spec.ridge) if spec.ridge else m
     poly = fit_lib.fit_from_moments(
         ms, solver=pol.solver, fallback=pol.fallback, cond_cap=pol.cond_cap,
@@ -144,6 +147,7 @@ def _fit_search(x: torch.Tensor, y: torch.Tensor,
                      converged=converged)
 
 
+@spans.span("api.fit")
 def fit(x, y, spec: FitSpec | None = None, *, weights=None,
         device=None) -> FitResult:
     """Executor 1: one eager call, any spec.  ``device=None`` means CUDA
@@ -168,6 +172,7 @@ def fit(x, y, spec: FitSpec | None = None, *, weights=None,
 
 
 # ------------------------------------------------------------ streaming
+@spans.span("stream.state")
 def stream_state(spec: FitSpec, batch: tuple[int, ...] = (), *,
                  dtype=None, device=None) -> streaming_lib.StreamState:
     """Executor 2 state: an O(1) ``StreamState`` wired to the spec, on
@@ -196,6 +201,7 @@ def stream_state(spec: FitSpec, batch: tuple[int, ...] = (), *,
         cv_folds=spec.folds, spec=spec, device=dev)
 
 
+@spans.span("stream.result")
 def stream_result(state: streaming_lib.StreamState) -> FitResult:
     """Read the spec's answer out of a running stream state: fixed-degree
     solve, moment-space LSPIA, or the scored degree ladder, all O(m²)

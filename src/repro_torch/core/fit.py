@@ -17,6 +17,7 @@ from repro_torch.core import basis as basis_lib
 from repro_torch.core import moments as moments_lib
 from repro_torch.core import solve as solve_lib
 from repro_torch.device import as_tensor, resolve_device
+from repro_torch.obs import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +62,7 @@ class Polynomial:
             self.coeffs, self.domain, self.degree)
 
 
+@spans.span("fit.solve")
 def fit_from_moments(m: moments_lib.Moments, *, method: str | None = None,
                      solver: str = "auto",
                      fallback: str | None = "svd",
@@ -220,6 +222,7 @@ def sse_from_moments(m: moments_lib.Moments,
     return yty - 2.0 * cross + _quad(coeffs, gram)
 
 
+@spans.span("fit.report")
 def report_from_moments(m: moments_lib.Moments,
                         coeffs: torch.Tensor) -> StreamedFitReport:
     """The full streamed report (SSE + R) from the O(m²) state alone."""

@@ -28,6 +28,7 @@ from repro_torch.core import fit as fit_lib
 from repro_torch.core import moments as moments_lib
 from repro_torch.core import solve as solve_lib
 from repro_torch.device import as_tensor, resolve_device
+from repro_torch.obs import spans
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(moments_lib.Moments))
 
@@ -222,6 +223,7 @@ def update_plan(state: StreamState, shape: tuple[int, ...], dtype,
         device=state.device, backend=backend)
 
 
+@spans.span("stream.update")
 def update(state: StreamState, x, y, *, weights=None,
            basis: str = basis_lib.MONOMIAL,
            engine: str = "auto",
@@ -247,7 +249,8 @@ def update(state: StreamState, x, y, *, weights=None,
     weights = None if weights is None else as_tensor(weights, dev)
     xt = x
     if spec is not None and spec.domain is not None:
-        xt = spec.domain_or(dtype=x.dtype, device=dev).apply(x)
+        with spans.span("fit.domain"):
+            xt = spec.domain_or(dtype=x.dtype, device=dev).apply(x)
     user_w = weights
     if spec is not None and spec.method == "irls":
         wr = _streaming_irls_weights(state, xt, y, weights)

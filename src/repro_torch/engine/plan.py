@@ -33,6 +33,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.obs import spans
+
 # path names (FitPlan.path)
 REFERENCE = "reference"
 KERNEL_PLAIN = "kernel_plain"
@@ -176,6 +178,7 @@ def resolve_engine(engine: str, use_kernel: bool | None) -> str:
     return engine
 
 
+@spans.span("fit.plan")
 def plan_fit(shape: tuple[int, ...], degree: int, *,
              basis: str = "monomial",
              dtype: Any = torch.float32,
@@ -349,6 +352,7 @@ def collective_counter() -> dict:
         return dict(_COLLECTIVE_COUNTER)
 
 
+@spans.span("fit.moments")
 def compute_moments(plan: FitPlan, x: torch.Tensor, y: torch.Tensor,
                     weights: torch.Tensor | None = None):
     """Execute a plan's moment accumulation.  Returns ``core.Moments``.

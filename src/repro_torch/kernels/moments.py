@@ -41,6 +41,8 @@ import threading
 
 import torch
 
+from repro_torch.obs import spans
+
 K_PAD = 128                   # the reference tile: degree + 2 <= 128
 # these two mirror csrc/moments_common.cuh (kRegMaxDegree, kThreads)
 REGISTER_MAX_DEGREE = 14      # above this the kernels use shared memory
@@ -166,6 +168,7 @@ def _ring_blocks(n: int, s: int, block_n: int) -> int:
     return -(-chunk // block_n)
 
 
+@spans.span("kernels.launch")
 def _launch_moments(layout: int, name: str, x, y, w, degree: int,
                     accum_dtype, compensated: bool, ring=None):
     """Launch the moment kernel of ``layout`` (0 plain, 1 packed); with

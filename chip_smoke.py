@@ -16,8 +16,11 @@ kernels from ``src/repro_torch/kernels/csrc``, then:
            compensated; the ring at (block_n, nbuf) = (256, 2) and (128, 3)
            on the same inputs; rerun bit-equality
   phase 2  api.fit (degree 3, B=4096 series × 65536 points, f32) on the
-           packed kernel, then fit_report_streamed on the report kernel,
-           checked against the planted cubic and chunked float64 moments
+           packed kernel and one solve_small launch, then
+           fit_report_streamed on the report kernel, checked against the
+           planted cubic and chunked float64 moments; solve_small on the
+           (4096, 4, 4) Gram views that api.fit passes it, against the
+           plain chain (bits of x, the flags, κ against float64)
   phase 3  api.fit (degree 7, one series of 2^28 points) on the plain
            kernel, plain and Kahan-compensated, Gram error vs float64
   phase 4  the paper's Table I data in float64: Σe² = 128.1999
@@ -189,6 +192,22 @@ def require(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
+def moment_launches(launches: dict) -> dict:
+    """The moment and report kernels' launches out of ``launch_counts()``,
+    without the solve kernel's (``solve_small``), which the phases count
+    on their own."""
+    return {k: v for k, v in launches.items() if k != "solve_small"}
+
+
+def launcher_solves(steps: int, log_every: int, degree: int) -> int:
+    """The solves of the train launcher's loss monitor (degree ``degree``)
+    over ``steps`` steps: at each logged step, once it holds degree + 2
+    losses, one fit for the slope and one for the divergence check."""
+    logged = [s for s in range(steps)
+              if s % log_every == 0 or s == steps - 1]
+    return 2 * sum(s + 1 >= degree + 2 for s in logged)
+
+
 def cuda_ms(torch, fn, reps=20):
     """Median CUDA-event time of ``fn`` over ``reps`` runs, after a warm-up."""
     fn()
@@ -340,13 +359,29 @@ def main() -> int:
     spec = api.FitSpec(degree=3)
     plan2 = spec.plan(tuple(x2.shape), x2.dtype, device=dev)
     require(plan2.path == engine.KERNEL_PACKED, f"phase2 plan {plan2.path}")
+    # the solve's inputs as api.fit hands them over: (B, 4, 4) and (B, 4)
+    # views of the moment kernel's extended Gram
+    from repro_torch.core import solve as solve_lib
+    solve_inputs = []
+    solve_entry = solve_lib.solve_with_fallback
+
+    def record_solve(a, b, **kw):
+        solve_inputs.append((a, b, kw))
+        return solve_entry(a, b, **kw)
+
     K.reset_launch_counts()
-    res2 = api.fit(x2, y2, spec)
+    solve_lib.solve_with_fallback = record_solve
+    try:
+        res2 = api.fit(x2, y2, spec)
+    finally:
+        solve_lib.solve_with_fallback = solve_entry
     rep2 = core.fit_report_streamed(res2.poly, x2, y2)
     torch.cuda.synchronize()
     launches2 = K.launch_counts()
     require(launches2["moments_packed"] >= 1, "moments_packed not launched")
     require(launches2["fused_report"] >= 1, "fused_report not launched")
+    require(launches2["solve_small"] == len(solve_inputs) == 1,
+            f"phase2 one solve_small launch for one fit: {launches2}")
     c2 = res2.poly.coeffs
     require(c2.shape == (B2, 4) and bool(torch.isfinite(c2).all()),
             "phase2 coefficients finite, (B, 4)")
@@ -403,6 +438,7 @@ def main() -> int:
         bytes=2 * x2.numel() * 4 + B2 * 4 * 4 + B2 * 7 * 4,
         points=x2.numel(),
         flops=(2 * 3 + 15) * x2.numel(), shape=f"B={B2} n={N2} deg 3 f32")
+    rows["solve_small"] = _solve_row(torch, solve_lib, *solve_inputs[0])
     fit2_ms = statistics.median(
         _host_ms(torch, lambda: api.fit(x2, y2, spec)) for _ in range(5))
     rep2_ms = statistics.median(
@@ -550,6 +586,24 @@ def main() -> int:
             **({"phase13_fold_max_abs_err": mesh_out["fold_max_abs_err"],
                 "phase13_fold_max_rel_err": mesh_out["fold_max_rel_err"]}
                if name == mesh_out["fold_kernel"] else {})})
+    # the solve kernel replaces no TPU kernel (the reference leaves the
+    # solve to jnp.linalg): its plain version is the torch chain
+    r = rows["solve_small"]
+    require(launches["solve_small"] >= 1,
+            "solve_small not launched on the main path")
+    kernels.append({
+        "name": "solve_small", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/solve.cu",
+        "replaces": None, "jax_body": None,
+        "launches": launches["solve_small"],
+        "phase2_launches": launches2["solve_small"],
+        **{k: r[k] for k in ("max_abs_err", "max_rel_err",
+                             "cond_max_rel_err", "cond_vs_plain_max_rel_err",
+                             "fallback_used", "ms", "plain_ms", "bytes",
+                             "shape")},
+        "bound_ms": r["bytes"] / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "gb_per_s": r["bytes"] / (r["ms"] * 1e-3) / 1e9})
     log(f"end to end: api.fit phase2 {fit2_ms:.3f} ms, phase3 "
         f"{fit3_ms:.3f} ms, phase6 selection {select_ms:.3f} ms, phase7 "
         f"IRLS {json.dumps(irls_ms)}; phase8 streaming "
@@ -574,6 +628,39 @@ def main() -> int:
 
 B_MAIN, N_MAIN = 4096, 1 << 16
 PLANTED = [0.5, -1.0, 0.25, 0.75]
+
+
+def _solve_row(torch, solve_lib, a, b, kw):
+    """The solve kernel's row at the main path's shape, on the Gram and
+    right-hand side that api.fit passed it: x bit-equal to the plain chain
+    where neither side falls back (on this data neither does), the flags
+    equal, κ within the card tests' 1e-3 of the float64 estimate; both
+    timed by CUDA events (the chain's time holds its three reads back to
+    the host).  bytes: the (B, k, k) Gram and (B, k) b read, x, cond and
+    the flag written."""
+    x, cond, used = solve_lib.solve_with_fallback(a, b, **kw)
+    px, pcond, pused = solve_lib.solve_with_fallback_plain(a, b, **kw)
+    require(not bool(used.any()) and torch.equal(used, pused),
+            f"solve_small flags {int(used.sum())} vs the chain's "
+            f"{int(pused.sum())} of {used.numel()}")
+    require(torch.equal(x, px), "solve_small x is not the chain's bits")
+    k64 = solve_lib.condition_estimate(a.double())
+    cond_rel = ((cond.double() - k64).abs() / k64).max().item()
+    require(cond_rel <= 1e-3, f"solve_small κ vs float64 rel {cond_rel:.3e}")
+    abs_e, rel = block_rel_err(x, px)
+    B, k = b.shape
+    item = a.element_size()
+    return dict(
+        max_abs_err=abs_e, max_rel_err=rel, cond_max_rel_err=cond_rel,
+        cond_vs_plain_max_rel_err=(
+            (cond.double() - pcond.double()).abs() / k64).max().item(),
+        fallback_used=int(used.sum()),
+        ms=cuda_ms(torch, lambda: solve_lib.solve_with_fallback(a, b, **kw)),
+        plain_ms=cuda_ms(torch, lambda: solve_lib.solve_with_fallback_plain(
+            a, b, **kw)),
+        bytes=B * (k * k + 2 * k + 1) * item + B,
+        shape=f"B={B} k={k} {str(a.dtype).removeprefix('torch.')} "
+              f"strides {tuple(a.stride())}")
 
 
 def _planted_data(c, outliers=0.0):
@@ -1698,6 +1785,7 @@ MESH_N = 1 << 28
 MESH_RANKS = 4
 MESH_SEED = 13
 MESH_FOLDS = 5
+MESH_SEARCH_DEGREE = 8
 MESH_TIMEOUT = 600               # seconds for the gloo ranks (no build)
 MESH_DECAY = 1.0 - 2.0 ** -24    # the largest float32 below 1
 # tests/test_api.py MATRIX_CELLS: the slack beyond the κ-scaled bound of
@@ -1732,9 +1820,25 @@ def _mesh_spec(api, torch, name):
         "lspia": api.FitSpec(degree=3, method="lspia",
                              lspia=api.LSPIAOptions(**LSPIA_OPTIONS),
                              domain=(0.0, 0.5)),
-        "search": api.FitSpec(degree=api.DegreeSearch(max_degree=8,
-                                                      folds=MESH_FOLDS)),
+        "search": api.FitSpec(degree=api.DegreeSearch(
+            max_degree=MESH_SEARCH_DEGREE, folds=MESH_FOLDS)),
         "decay": api.FitSpec(degree=3, decay=MESH_DECAY)}[name]
+
+
+def _mesh_solves(torch, core, name, iterations):
+    """The gauss solves (solve_small's launches on the card) of one
+    phase-13 question: one a fit; IRLS one a sweep and one for its start;
+    LSPIA none (it sweeps, it solves nothing); the search two a degree
+    (the folds' batch and the whole data) wherever the normalized fit's
+    rung is gauss."""
+    if name == "irls":
+        return iterations + 1
+    if name == "lspia":
+        return 0
+    if name == "search":
+        return 2 * sum(core.select_solver(d, torch.float32, normalized=True)
+                       == "gauss" for d in range(MESH_SEARCH_DEGREE + 1))
+    return 1
 
 
 def _mesh_fit(torch, api, core, name, mesh, x, y):
@@ -1974,14 +2078,18 @@ def phase13(c):
                 r["collectives"] = engine.collective_counter()
                 want_passes = r["iterations"] + 1 if name == "irls" else 1
                 kernel = fold_kernel if name == "search" else "moments_plain"
+                want_solves = _mesh_solves(torch, core, name, r["iterations"])
                 if on_card:
                     # every moment pass a kernel launch: never the
-                    # reference path
+                    # reference path; every gauss solve one solve_small
                     require(passes == want_passes
                             and launches[kernel] == passes
-                            and sum(launches.values()) == passes,
+                            and sum(moment_launches(launches).values())
+                            == passes
+                            and launches["solve_small"] == want_solves,
                             f"phase13a {name}: {launches} for {passes} "
-                            f"moment passes ({want_passes} expected)")
+                            f"moment passes ({want_passes} expected) and "
+                            f"{want_solves} solves")
                 for k, v in launches.items():
                     total[k] += v
                 spec = _mesh_spec(api, torch, name)
@@ -2844,10 +2952,12 @@ def _train_moe(c):
 
 
 def phase15(c):
-    """The zoo's training path (no fit kernel runs here)."""
+    """The zoo's training path (no moment kernel runs here; the loss
+    monitor's fits launch the solve kernel)."""
     torch, dev, K = c["torch"], c["dev"], c["K"]
     from repro_torch.core import streaming
     from repro_torch.launch import train as train_lib
+    from repro_torch.train import LossCurveMonitor
     K.reset_launch_counts()
     out = {}
     t0 = time.perf_counter()
@@ -2885,8 +2995,12 @@ def phase15(c):
     out["15d"] = _train_moe(c)
     _zoo_free(c)
     launches = K.launch_counts()
-    require(not any(launches.values()),
-            f"the training path launched a fit kernel: {launches}")
+    # 15b's launcher monitor, and its slope read above
+    want_solves = launcher_solves(20, 5, LossCurveMonitor.degree) + 1
+    require(not any(moment_launches(launches).values())
+            and launches["solve_small"] == want_solves,
+            f"the training path launched a fit kernel, or not "
+            f"{want_solves} solves: {launches}")
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase15 {out['wall_s']:.1f} s; fit-kernel launches {launches}")
     return launches, out
@@ -3219,8 +3333,10 @@ def _fam_whisper(c):
 
 
 def phase16(c):
-    """The zoo's recurrent, hybrid and audio families (no fit kernel runs
-    here)."""
+    """The zoo's recurrent, hybrid and audio families (no moment kernel
+    runs here; the train launcher's loss monitor launches the solve
+    kernel)."""
+    from repro_torch.train import LossCurveMonitor
     K = c["K"]
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3229,8 +3345,13 @@ def phase16(c):
     out["16e"] = _fam_whisper(c)
     _zoo_free(c)
     launches = K.launch_counts()
-    require(not any(launches.values()),
-            f"the families' path launched a fit kernel: {launches}")
+    # 16e's train launcher's monitor
+    want_solves = launcher_solves(FAM_WHISPER_TRAIN_STEPS, 1,
+                                  LossCurveMonitor.degree)
+    require(not any(moment_launches(launches).values())
+            and launches["solve_small"] == want_solves,
+            f"the families' path launched a fit kernel, or not "
+            f"{want_solves} solves: {launches}")
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase16 {out['wall_s']:.1f} s; fit-kernel launches {launches}")
     return launches, out
@@ -3538,11 +3659,13 @@ def _shard_bounds(cells):
 
 
 def phase17(c, train_out):
-    """Sharded training and the dry run (no fit kernel runs here).  There
+    """Sharded training and the dry run (no moment kernel runs here; the
+    train launcher's loss monitor launches the solve kernel).  There
     is no 17b of gloo ranks sharing the card: gloo carries the plain c10d
     all-gather and reduce-scatter of CUDA tensors, but DTensor's
     functional collectives on them end the process (SIGSEGV, torch
     2.11); the CPU tests hold the 4-rank meshes."""
+    from repro_torch.train import LossCurveMonitor
     K = c["K"]
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3553,8 +3676,12 @@ def phase17(c, train_out):
     _zoo_free(c)
     out["17c"] = _shard_dryrun(c, train_out)
     launches = K.launch_counts()
-    require(not any(launches.values()),
-            f"the sharded path launched a fit kernel: {launches}")
+    # 17a's train launcher's monitor
+    want_solves = launcher_solves(20, 5, LossCurveMonitor.degree)
+    require(not any(moment_launches(launches).values())
+            and launches["solve_small"] == want_solves,
+            f"the sharded path launched a fit kernel, or not "
+            f"{want_solves} solves: {launches}")
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase17 {out['wall_s']:.1f} s; fit-kernel launches {launches}")
     return launches, out

@@ -24,7 +24,11 @@ from repro_torch.obs import spans
 class FitDiagnostics:
     """Numerical health of one normal-equation solve: the estimated κ₂ of
     the Gram (+inf when singular) and whether the rescue solver produced
-    the returned coefficients."""
+    the returned coefficients.  On CUDA the ``gauss`` rung of k <= 8 runs
+    in the solve kernel, which estimates κ in float64 for a float32 Gram
+    too: there ``condition`` can differ from the CPU's float32 estimate,
+    and past the cap so can ``fallback_used`` (the card rescues series
+    whose float64 κ exceeds it)."""
 
     condition: torch.Tensor       # (...,) estimated κ₂(VᵀV)
     fallback_used: torch.Tensor   # (...,) bool

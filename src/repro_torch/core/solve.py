@@ -8,7 +8,10 @@ condition-aware ladder (Skala, arXiv:1802.07591) adds ``cholesky_solve``,
 the static ``select_solver`` and the runtime guard ``solve_with_fallback``.
 
 Every function is batched over leading axes as plain tensor ops: no
-Python loop over series and no host read of a device value.  Grams that
+Python loop over series.  On the card, ``solve_with_fallback`` hands the
+``gauss`` rung for k <= 8 to one hand-written kernel
+(``kernels/solve.py``), which reads nothing back to the host; the chain
+below is its plain version and runs every other call.  Grams that
 hold a non-finite entry are swapped for the identity before they reach a
 LAPACK/cuSOLVER factorization, and their results are written as NaN (the
 condition estimate as +inf), which is what the JAX reference returns for
@@ -174,10 +177,27 @@ def solve_with_fallback(a: torch.Tensor, b: torch.Tensor, *,
     """Condition-guarded solve.  Returns ``(x, cond, fallback_used)``.
 
     The fallback engages where κ(A) exceeds ``cond_cap`` (default
-    per-dtype ``COND_CAP``) or the primary output is non-finite.  Both
-    branches are computed and selected per series with ``torch.where``:
-    no host branch on a device value.  ``fallback=None`` turns the guard
-    off (fallback_used is all False)."""
+    per-dtype ``COND_CAP``) or the primary output is non-finite; no host
+    branch on a device value.  ``fallback=None`` turns the guard off
+    (fallback_used is all False).  A CUDA call that ``kernels.solve.takes``
+    accepts runs as one kernel launch; every other call runs
+    ``solve_with_fallback_plain``."""
+    cap = float(cond_cap) if cond_cap is not None else cond_cap_for(a.dtype)
+    from repro_torch.kernels import solve as ksolve
+    if ksolve.takes(a, b, method, fallback):
+        return ksolve.solve_small(a, b, method=method, fallback=fallback,
+                                  cond_cap=cap)
+    return solve_with_fallback_plain(a, b, method=method, fallback=fallback,
+                                     cond_cap=cap)
+
+
+def solve_with_fallback_plain(a: torch.Tensor, b: torch.Tensor, *,
+                              method: str = "gauss",
+                              fallback: str | None = "svd",
+                              cond_cap: float | None = None):
+    """``solve_with_fallback`` as tensor ops, the solve kernel's plain
+    version: both branches computed for every series and selected with
+    ``torch.where``."""
     cap = float(cond_cap) if cond_cap is not None else cond_cap_for(a.dtype)
     cond = condition_estimate(a)
     x = solve(a, b, method)

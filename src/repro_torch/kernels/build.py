@@ -135,6 +135,8 @@ def load(path) -> ctypes.CDLL:
         "repro_ring_smem_bytes": ([i32, i32, i32, i32, i32, i32], i64),
         "repro_report": ([i32, i32, p, p, p, p, i64, i64, i32, i32, p, p, p],
                          i32),
+        "repro_solve_small": ([i32, i32, i32, p, i64, i64, i64, p, i64, i64,
+                               i64, ctypes.c_double, p, p, p, p], i32),
         "repro_error_string": ([i32], ctypes.c_char_p),
     }
     for name, (args, res) in signatures.items():

@@ -60,10 +60,11 @@ REPORT_NAMES = ("sw", "sy", "syy", "sf", "sff", "syf", "sse")
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _ACC_CODES = {torch.float32: 0, torch.float64: 1}
 
-# launches per kernel since the last reset (read by chip_smoke.py and tests);
-# the lock keeps the counts exact when fleet workers launch from threads
+# launches per kernel since the last reset (read by chip_smoke.py and tests;
+# "solve_small" counts kernels/solve.py's); the lock keeps the counts exact
+# when fleet workers launch from threads
 _LAUNCHES = {"moments_plain": 0, "moments_packed": 0,
-             "moments_packed_ring": 0, "fused_report": 0}
+             "moments_packed_ring": 0, "fused_report": 0, "solve_small": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 

@@ -71,10 +71,239 @@ def test_cuda_launch_counts_and_fit(cuda):
     api.fit(x[0], y[0], api.FitSpec(degree=3))
     assert K.launch_counts() == {"moments_plain": 1, "moments_packed": 1,
                                  "moments_packed_ring": 0,
-                                 "fused_report": 1}
+                                 "fused_report": 1, "solve_small": 2}
     np.testing.assert_allclose(res.coeffs.cpu().numpy(),
                                np.tile([1.0, 1.0, 0.0, -1.0], (4, 1)),
                                atol=1e-4)
+
+
+# ------------------------------------------------------------ the solve kernel
+def _extended_grams(cuda, shape, k, dtype, seed):
+    """(k, k) Grams and (k,) right-hand sides of 64 points a series, as
+    views of (k+1, k+1) extended Grams (the moment kernels' output); x ~
+    U(c - 1, c + 1) with the centre c cycling over 0, 0.5, 1.5, 3, so κ
+    runs from 1 to far past the float32 cap as k grows."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    nb, n = int(np.prod(shape)), 64
+    f64 = {"dtype": torch.float64, "device": cuda}
+    c = torch.tensor([0.0, 0.5, 1.5, 3.0], **f64).repeat(nb // 4 + 1)[:nb]
+    x = c[:, None] + torch.rand(nb, n, generator=g, **f64) * 2 - 1
+    y = torch.randn(nb, n, generator=g, **f64)
+    w = torch.stack([x ** j for j in range(k)] + [y], dim=-2)
+    ext = w @ w.transpose(-1, -2)
+    ext = ((ext + ext.transpose(-1, -2)) / 2).to(dtype)
+    ext = ext.reshape(*shape, k + 1, k + 1)
+    return ext[..., :k, :k], ext[..., :k, k]
+
+
+def _far_from_cap(kappa, dtype):
+    """Series whose κ estimate lies a decade or more from the cap."""
+    from repro_torch.core import solve as S
+    return (kappa.double().log10()
+            - np.log10(S.cond_cap_for(dtype))).abs() >= 1
+
+
+def _check_flags(a, x, used, pused, pcond, dtype):
+    """The kernel's guard is the float64 one (its κ is computed in
+    double): it agrees with κ64 > cap, or a non-finite x, wherever κ64 lies
+    a decade from the cap.  The plain chain estimates κ in the Gram's
+    dtype, which in float32 reads high κ low by a decade and more: its
+    flags are compared where its own estimate lies a decade from the cap
+    too.  On a non-finite Gram both flag every series.  Where the two
+    parts, κ64 lies past the cap or within two decades below it: float32
+    eigenvalues err by about k·eps·max|λ|, so the chain reads κ past the
+    cap only where κ64 exceeds some 1e6."""
+    from repro_torch.core import solve as S
+    kappa = S.condition_estimate(a.double())
+    cap = S.cond_cap_for(dtype)
+    bad64 = ~torch.isfinite(x).all(-1) | (kappa > cap)
+    nonfinite = ~torch.isfinite(a).all(-1).all(-1)
+    far = _far_from_cap(kappa, dtype) | nonfinite
+    assert torch.equal(used[far], bad64[far])
+    both = far & (_far_from_cap(pcond, dtype) | nonfinite)
+    assert torch.equal(used[both], pused[both])
+    assert bool((kappa[used != pused] >= cap / 100).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(), (7,), (3, 5), (0,)])
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_solve_kernel_matches_plain(cuda, dtype, k, shape):
+    """Where neither side falls back, the kernel's coefficients have the
+    plain chain's bits; the flags agree a decade from the cap either side
+    (``_check_flags``); κ within test_torch_solve.py's condition tolerance
+    of the float64 estimate, where that estimate holds seven digits
+    (κ <= 1e9)."""
+    from repro_torch.core import solve as S
+    a, b = _extended_grams(cuda, shape, k, dtype, seed=k)
+    K.reset_launch_counts()
+    x, cond, used = S.solve_with_fallback(a, b)
+    px, pcond, pused = S.solve_with_fallback_plain(a, b)
+    assert K.launch_counts()["solve_small"] == (0 if 0 in shape else 1)
+    for got, want in ((x, px), (cond, pcond), (used, pused)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+    _check_flags(a, x, used, pused, pcond, dtype)
+    well = ~used & ~pused
+    assert torch.equal(x[well], px[well])
+    ref = S.condition_estimate(a.double())
+    sure = ref <= 1e9
+    rtol = 1e-3 if dtype == torch.float32 else 1e-6
+    err = (cond[sure].double() - ref[sure]).abs()
+    assert bool((err <= rtol * ref[sure]).all())
+
+
+def _rescue_cases(cuda, k, dtype):
+    """Beside a healthy Gram: κ far past either cap from a bad scaling (its
+    equilibrated matrix well conditioned), rank 1, all zero, indefinite, a
+    NaN entry, an inf below and one above the diagonal, a NaN in b."""
+    g = torch.Generator(device=cuda).manual_seed(100 + k)
+    f64 = {"dtype": torch.float64, "device": cuda}
+    q = torch.linalg.qr(torch.randn(k, k, generator=g, **f64))[0]
+    spd = q @ torch.diag(torch.linspace(1.0, 10.0, k, **f64)) @ q.T
+    dsc = torch.logspace(-3, 3, k, **f64)
+    v = 0.7 ** torch.arange(k, **f64)
+    rank1 = 50.0 * torch.outer(v, v)
+    indef = torch.diag(torch.tensor([1.0, -2.0] * 4, **f64)[:k])
+    a = torch.stack([spd, dsc[:, None] * spd * dsc, rank1,
+                     torch.zeros(k, k, **f64), indef] + [spd] * 4)
+    a = (a + a.transpose(-1, -2)) / 2
+    b = torch.randn(9, k, generator=g, **f64)
+    b[2] = rank1 @ torch.ones(k, **f64)
+    b[3] = 0.0
+    a, b = a.to(dtype), b.to(dtype)
+    a[5, 0, 0] = float("nan")
+    a[6, k - 1, 0] = float("inf")
+    a[7, 0, k - 1] = float("inf")
+    b[8, 0] = float("nan")
+    return a, b
+
+
+def _kept_condition(a, dtype):
+    """κ of the equilibrated Gram over the eigenvalues the rescue keeps
+    (float64; 1 where it keeps none)."""
+    ad = torch.nan_to_num(a.double(), posinf=0.0)
+    d = torch.diagonal(ad, dim1=-2, dim2=-1)
+    d = torch.where(d > 0, d.clamp_min(1e-300).rsqrt(), torch.ones_like(d))
+    w = torch.linalg.eigvalsh(ad * d[..., :, None] * d[..., None, :]).abs()
+    cut = torch.finfo(dtype).eps * a.shape[-1] * w.amax(-1, keepdim=True)
+    low = torch.where(w > cut, w, torch.full_like(w, float("inf"))).amin(-1)
+    return torch.where(torch.isfinite(low), w.amax(-1) / low,
+                       torch.ones_like(low))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_solve_kernel_rescue_matches_svd_solve(cuda, dtype, k):
+    """Where the guard trips, the kernel's rescue against the plain
+    svd_solve: NaN where it is NaN, else within 64·k·eps·κ of the kept
+    spectrum (the two differ in the eigensolver and its precision)."""
+    from repro_torch.core import solve as S
+    a, b = _rescue_cases(cuda, k, dtype)
+    x, cond, used = S.solve_with_fallback(a, b)
+    px, pcond, pused = S.solve_with_fallback_plain(a, b)
+    _check_flags(a, x, used, pused, pcond, dtype)
+    # κ is +inf by definition on a non-finite or all-zero Gram (on a rank-1
+    # one either side may round the smallest eigenvalue to 0)
+    undefined = ~torch.isfinite(a).all(-1).all(-1) | (a == 0).all(-1).all(-1)
+    assert torch.isinf(cond[undefined]).all()
+    assert torch.isinf(pcond[undefined]).all()
+    both = used & pused
+    xs = S.svd_solve(a, b)
+    assert torch.equal(torch.isnan(x[both]), torch.isnan(xs[both]))
+    fin = both & torch.isfinite(xs).all(-1)
+    tol = 64 * k * torch.finfo(dtype).eps * _kept_condition(a, dtype)[fin]
+    dx = (x[fin].double() - xs[fin].double()).norm(dim=-1)
+    assert bool((dx <= tol * xs[fin].double().norm(dim=-1)).all())
+    if k > 1:      # the bad scaling, rank 1, zero and non-finite Grams
+        assert used[[1, 2, 3, 5, 6, 7, 8]].all() and not used[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fallback", [None, "gauss"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_solve_kernel_flag_only(cuda, dtype, fallback):
+    """No rescue: x is Gauss-Jordan's everywhere, bit for bit with the
+    plain chain (NaN where it is NaN); fallback_used all False without a
+    fallback, the guard's verdict with fallback == method."""
+    from repro_torch.core import solve as S
+    for k in range(1, 9):
+        a, b = _rescue_cases(cuda, k, dtype)
+        x, cond, used = S.solve_with_fallback(a, b, fallback=fallback)
+        px, pcond, pused = S.solve_with_fallback_plain(a, b,
+                                                       fallback=fallback)
+        assert torch.equal(torch.isnan(x), torch.isnan(px))
+        assert torch.equal(x.nan_to_num(), px.nan_to_num())
+        if fallback is None:
+            assert not bool(used.any()) and not bool(pused.any())
+        else:
+            _check_flags(a, x, used, pused, pcond, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,fallback,dtype,k", [
+    ("cholesky", "svd", torch.float64, 4), ("qr", "svd", torch.float32, 4),
+    ("gauss", "qr", torch.float32, 4), ("gauss", "svd", torch.float32, 9),
+])
+def test_cuda_solve_other_calls_keep_the_plain_chain(cuda, method, fallback,
+                                                     dtype, k):
+    from repro_torch.core import solve as S
+    a, b = _extended_grams(cuda, (6,), k, dtype, seed=3)
+    K.reset_launch_counts()
+    got = S.solve_with_fallback(a, b, method=method, fallback=fallback)
+    want = S.solve_with_fallback_plain(a, b, method=method,
+                                       fallback=fallback)
+    assert K.launch_counts()["solve_small"] == 0
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.nan_to_num(), w_.nan_to_num())
+
+
+@pytest.mark.cuda
+def test_cuda_fit_solves_in_one_launch_with_no_linalg_and_no_sync(
+        cuda, monkeypatch):
+    """api.fit at the benchmark's (4096, 65536), degree 3: one solve_small
+    launch a call, torch.linalg's eigvalsh and svd never called, the
+    coefficients the plain chain's bits on the same moments, and the
+    solve itself free of any synchronising call."""
+    from repro_torch import api
+    from repro_torch.core import solve as S
+    g = torch.Generator(device=cuda).manual_seed(26)
+    x = torch.rand(4096, 65536, generator=g, device=cuda) * 4 - 2
+    c = torch.randn(4096, 4, 1, generator=g, device=cuda)
+    y = (c[:, 0] + x * (c[:, 1] + x * (c[:, 2] + x * c[:, 3]))
+         + 0.1 * torch.randn(x.shape, generator=g, device=cuda))
+    seen = []
+    kernel_path = S.solve_with_fallback
+
+    def record(a, b, **kw):
+        out = kernel_path(a, b, **kw)
+        seen.append((a, b, kw, out))
+        return out
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.linalg called on the kernel path")
+
+    monkeypatch.setattr(S, "solve_with_fallback", record)
+    monkeypatch.setattr(torch.linalg, "eigvalsh", refuse)
+    monkeypatch.setattr(torch.linalg, "svd", refuse)
+    K.reset_launch_counts()
+    for call in range(2):
+        res = api.fit(x, y, api.FitSpec(degree=3))
+        assert K.launch_counts()["solve_small"] == call + 1
+    monkeypatch.undo()
+    a, b, kw, (cx, ccond, cused) = seen[-1]
+    assert len(seen) == 2 and a.shape == (4096, 4, 4)
+    assert not bool(cused.any())
+    px, pcond, pused = S.solve_with_fallback_plain(a, b, **kw)
+    assert torch.equal(cx, px) and torch.equal(cused, pused)
+    assert torch.equal(res.poly.coeffs, cx)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        S.solve_with_fallback(a, b, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 @pytest.mark.cuda

@@ -225,4 +225,5 @@ def test_example_reports_launch_counts(name):
     out = run_example(name)
     assert out["device"] == "cpu"
     assert out["launches"] == {"moments_plain": 0, "moments_packed": 0,
-                               "moments_packed_ring": 0, "fused_report": 0}
+                               "moments_packed_ring": 0, "fused_report": 0,
+                               "solve_small": 0}

@@ -116,7 +116,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     K.fused_report(tx, ty, None, torch.zeros(2, 3))
     assert K.launch_counts() == {"moments_plain": 0, "moments_packed": 0,
                                  "moments_packed_ring": 0,
-                                 "fused_report": 0}
+                                 "fused_report": 0, "solve_small": 0}
 
 
 def test_nbuf_and_packing_validation():
@@ -148,7 +148,8 @@ def test_nbuf_and_packing_validation():
 
 def test_build_command_targets_sm90a_without_fast_math(tmp_path):
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["moments.cu", "moments_ring.cu"]
+    assert [s.name for s in srcs] == ["moments.cu", "moments_ring.cu",
+                                      "solve.cu"]
     objs = [tmp_path / f"{s.stem}.o" for s in srcs]
     for src, obj in zip(srcs, objs):
         cmd = build.compile_command(src, obj, "nvcc")

@@ -4,6 +4,8 @@ batched Grams, CPU.
 Tolerances: solutions of well-conditioned f64 systems rtol 1e-9; f32
 systems rtol 1e-4 (κ ≈ 1e2 times f32 eps, different LAPACK paths);
 condition estimates rtol 1e-6 (f64) / 1e-3 (f32)."""
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -168,3 +170,112 @@ def test_moments_condition_uses_estimate():
     with jax.enable_x64(True):
         ref = np.asarray(jmom.condition())
     np.testing.assert_allclose(m.condition().numpy(), ref, rtol=1e-3)
+
+
+# ------------------------------------------------ the solve kernel's dispatch
+@pytest.mark.parametrize("device_type,method,fallback,k,dtype,want", [
+    ("cuda", "gauss", "svd", 4, torch.float32, True),
+    ("cuda", "gauss", "gauss", 1, torch.float64, True),
+    ("cuda", "gauss", None, 8, torch.float32, True),
+    ("cpu", "gauss", "svd", 4, torch.float32, False),
+    ("cuda", "cholesky", "svd", 4, torch.float64, False),
+    ("cuda", "qr", "svd", 4, torch.float32, False),
+    ("cuda", "svd", "svd", 4, torch.float32, False),
+    ("cuda", "gauss", "qr", 4, torch.float32, False),
+    ("cuda", "gauss", "cholesky", 4, torch.float64, False),
+    ("cuda", "gauss", "svd", 9, torch.float32, False),
+    ("cuda", "gauss", "svd", 0, torch.float32, False),
+    ("cuda", "gauss", "svd", 4, torch.float16, False),
+    ("cuda", "gauss", "svd", 4, torch.bfloat16, False),
+])
+def test_solve_kernel_takes(device_type, method, fallback, k, dtype, want):
+    """The rule that hands a solve_with_fallback call to the kernel, over
+    what the call's inputs show (their device, dtype and shape: stand-ins
+    carry a CUDA device here)."""
+    from repro_torch.kernels import solve as ksolve
+    a = _like(device_type, dtype, (3, k, k))
+    b = _like(device_type, dtype, (3, k))
+    assert ksolve.takes(a, b, method, fallback) is want
+
+
+def _like(device_type, dtype, shape):
+    """What the dispatch rule reads of a tensor, on any device type."""
+    return types.SimpleNamespace(device=torch.device(device_type),
+                                 dtype=dtype, shape=torch.Size(shape),
+                                 ndim=len(shape))
+
+
+@pytest.mark.parametrize("case", ["b_dtype", "b_shape", "b_device",
+                                  "not_square", "vector"])
+def test_solve_kernel_takes_reads_b_and_the_shapes(case):
+    """A call whose b, or whose Gram's shape, does not fit stays on the
+    plain chain, whatever its rung."""
+    from repro_torch.kernels import solve as ksolve
+    a = _like("cuda", torch.float32, (3, 4, 4))
+    b = _like("cuda", torch.float32, (3, 4))
+    assert ksolve.takes(a, b, "gauss", "svd")
+    if case == "b_dtype":
+        b = _like("cuda", torch.float64, (3, 4))
+    elif case == "b_shape":
+        b = _like("cuda", torch.float32, (3, 5))
+    elif case == "b_device":
+        b = _like("cpu", torch.float32, (3, 4))
+    elif case == "not_square":
+        a = _like("cuda", torch.float32, (3, 4, 5))
+    else:
+        a, b = _like("cuda", torch.float32, (4,)), _like("cuda",
+                                                          torch.float32, ())
+    assert not ksolve.takes(a, b, "gauss", "svd")
+
+
+def _no_library():
+    raise AssertionError("the kernel library was asked for")
+
+
+@pytest.mark.parametrize("case,err,match", [
+    ("k9", ValueError, "k=9"),
+    ("float16", TypeError, "dtypes"),
+    ("b_shape", ValueError, "expected a"),
+    ("not_square", ValueError, "expected a"),
+    ("b_dtype", TypeError, "dtypes"),
+    ("method", ValueError, "method='cholesky'"),
+    ("fallback", ValueError, "fallback='qr'"),
+    ("cpu", ValueError, "CUDA"),
+])
+def test_solve_kernel_refuses_before_launch(monkeypatch, case, err, match):
+    from repro_torch.kernels import build
+    from repro_torch.kernels import solve as ksolve
+    monkeypatch.setattr(build, "library", _no_library)
+    k = 9 if case == "k9" else 4
+    a = torch.eye(k, dtype=torch.float16 if case == "float16"
+                  else torch.float32).expand(3, k, k)
+    b = torch.ones(3, k, dtype=a.dtype)
+    kw = {"method": "gauss", "fallback": "svd", "cond_cap": 3e7}
+    if case == "b_shape":
+        b = torch.ones(3, k + 1)
+    elif case == "not_square":
+        a = torch.ones(3, k, k + 1)
+    elif case == "b_dtype":
+        b = b.double()
+    elif case == "method":
+        kw["method"] = "cholesky"
+    elif case == "fallback":
+        kw["fallback"] = "qr"
+    with pytest.raises(err, match=match):
+        ksolve.solve_small(a, b, **kw)
+
+
+@pytest.mark.parametrize("fallback", ["svd", "gauss", None])
+def test_solve_with_fallback_on_the_cpu_is_the_plain_path(monkeypatch,
+                                                          fallback):
+    """The CPU never reaches the kernel: the results are the plain
+    version's, bit for bit."""
+    from repro_torch.kernels import solve as ksolve
+    monkeypatch.setattr(ksolve, "solve_small", _no_library)
+    a, b = _singular_cases()
+    t_a, t_b = torch.from_numpy(a), torch.from_numpy(b)
+    got = ts.solve_with_fallback(t_a, t_b, fallback=fallback)
+    want = ts.solve_with_fallback_plain(t_a, t_b, fallback=fallback)
+    for g, w in zip(got, want):
+        assert torch.equal(g.nan_to_num(), w.nan_to_num())
+        assert torch.equal(g.isnan(), w.isnan())

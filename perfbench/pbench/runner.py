@@ -107,6 +107,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
               seed=int(seed), seconds=float(seconds), trace=bool(trace),
               spans=devtrace.Spans(), overrides=dict(overrides or {}))
     out = cells_lib.system_driver(cell).run(ctx)
+    from pbench import ranks      # the harness ends a cell's peers, so
+    ranks.close_open()            # their checks come before the result
     setup_s = out["window_start"] - t_start
     for k, v in sorted(out.get("info", {}).items()):
         log(f"{k} = {v}")

@@ -1,8 +1,8 @@
 """``correct`` fails where it should: the control (the reference one
 precision below, in the program's place) reads past every cell's limit,
 and a run with the timed path broken underneath comes out not correct,
-once for each fault the cell can have.  A sound run at the same size
-comes out correct."""
+once for each fault its system can have (``small/<system>.py``).  A
+sound run at the same size comes out correct."""
 from __future__ import annotations
 
 import pytest
@@ -12,8 +12,7 @@ import pb_faults
 import pb_small
 from pbench import cells, devtrace, runner
 
-CASES = [(c, f) for c in pb_small.CELLS
-         for f in pb_small.FAULTS[pb_small.system(c)]]
+CASES = [(c, f) for c in pb_small.CELLS for f in pb_small.faults(c)]
 
 
 @pytest.mark.parametrize("cell", pb_small.CELLS)
@@ -25,7 +24,7 @@ def test_sound_run_is_correct(cell):
 
 @pytest.mark.parametrize("cell,fault", CASES)
 def test_fault_is_not_correct(cell, fault):
-    restore = pb_faults.apply(fault)
+    restore = pb_faults.apply(cell, fault)
     try:
         r = pb_small.run(cell)
     finally:

@@ -37,7 +37,8 @@ def test_each_series_has_its_own_polynomial():
 
 
 def test_batch_driver_refuses_an_open_loop():
-    cell = pb_small.CELLS[0]
+    cell = next(c for c in pb_small.CELLS
+                if pb_small.system(c) == "batch_fit")
     with pytest.raises(ValueError, match="closed-loop"):
         pb_small.run(cell, traffic={"arrivals": {"process": "poisson",
                                                  "rate_per_s": 10.0}})

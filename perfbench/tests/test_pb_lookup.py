@@ -7,12 +7,14 @@ import re
 
 import pytest
 
+import pb_small
 from pbench import cells
 
 BENCH = cells.load_json(cells.ROOT / "BENCHMARK.json")
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
+SYSTEMS = sorted({cells.load_cell(c, BENCH).system for c in CELLS})
 
 
 def test_top_level_keys():
@@ -25,12 +27,27 @@ def test_top_level_keys():
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_found_by_name(cell):
     c = cells.load_cell(cell, BENCH)
-    assert callable(cells.system_driver(c).run)
+    driver = cells.system_driver(c)
+    assert callable(driver.run)
+    if c.chips > 1:
+        assert callable(driver.peer), "a driver on cards > 1 has peer(ctx)"
     assert c.limits, "a cell's limits file names its compared numbers"
     assert any(m["name"] == "setup_s" for m in c.end_to_end)
     assert len(c.end_to_end) >= 2 and c.per_layer
     for m in c.per_layer:
         assert callable(cells.metric_reader(m["name"]).read)
+
+
+@pytest.mark.parametrize("system", SYSTEMS)
+def test_system_has_small_settings(system):
+    path = pb_small.small_file(system)
+    assert path.is_file(), (
+        f"{path.relative_to(cells.ROOT)} is missing: the CPU tests run "
+        f"{system}'s cells at the sizes, for the seconds and with the "
+        f"faults it names (SECONDS, overrides(cell), FAULTS)")
+    small = pb_small.system_settings(system)
+    assert small.SECONDS > 0 and callable(small.overrides)
+    assert small.FAULTS and all(callable(f) for f in small.FAULTS.values())
 
 
 def test_names_units_and_moves():

@@ -271,13 +271,16 @@ def make_distributed(spec: FitSpec, mesh, *,
     the result is replicated.  The method dispatch, the O(m²)
     all-reduce, IRLS with an all-reduce per sweep, moment-space LSPIA and
     the fold-stack all-reduce of a DegreeSearch live in
-    ``core.distributed.make_spec_executor``."""
+    ``core.distributed.make_spec_executor``.  Each call is one
+    ``api.distributed`` span (``obs.spans``), holding ``fit.domain`` (the
+    global domain and its map) and a ``mesh.allreduce`` a collective."""
     runner, kind = distributed_lib.make_spec_executor(
         spec, mesh, data_axes=data_axes)
     if spec.is_search:
         ds = spec.degree
         criterion = ds.criterion or ("cv" if ds.folds >= 2 else "aicc")
 
+    @spans.span("api.distributed")
     def run(x, y, weights=None) -> FitResult:
         out = runner(x, y, weights)
         if kind == "search":

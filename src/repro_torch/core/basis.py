@@ -45,7 +45,10 @@ class Domain:
         return Domain(shift.to(x.dtype), scale.to(x.dtype))
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        return (x - self.shift) * self.scale
+        """``(x - shift) * scale`` with one temporary the size of x: the
+        difference is scaled in place (the same operations, the same
+        bits)."""
+        return torch.sub(x, self.shift).mul_(self.scale)
 
 
 def vandermonde(x: torch.Tensor, degree: int,

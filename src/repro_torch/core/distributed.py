@@ -66,6 +66,7 @@ from repro_torch.core import moments as moments_lib
 from repro_torch.core import solve as solve_lib
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import spans
 from repro_torch.runtime import chaos as chaos_lib
 from repro_torch.runtime import straggler as straggler_lib
 from repro_torch.runtime.fault_tolerance import FailureDetector
@@ -101,10 +102,12 @@ def _all_reduce(t: torch.Tensor, op: str, mesh,
                 data_axes: tuple[str, ...]) -> torch.Tensor:
     """In-place ``all_reduce`` of ``t`` under ``op`` ("sum", "min", "max")
     over each data axis in turn (one collective per axis, each counted by
-    ``engine.collective_counter``).  Returns ``t``."""
+    ``engine.collective_counter`` and each a ``mesh.allreduce`` span).
+    Returns ``t``."""
     for ax in data_axes:
-        engine_lib.record_collective(op, t.numel() * t.element_size())
-        dist.all_reduce(t, op=_REDUCE_OPS[op], group=mesh.get_group(ax))
+        with spans.span("mesh.allreduce"):
+            engine_lib.record_collective(op, t.numel() * t.element_size())
+            dist.all_reduce(t, op=_REDUCE_OPS[op], group=mesh.get_group(ax))
     return t
 
 
@@ -314,8 +317,9 @@ def make_spec_executor(spec, mesh, *,
     # ------------------------------------------------------------ programs
     def prepare(x, w):
         w = apply_decay(x, w)
-        dom = shard_domain(x, w)
-        return w, dom, dom.apply(x)
+        with spans.span("fit.domain"):
+            dom = shard_domain(x, w)
+            return w, dom, dom.apply(x)
 
     if search:
         def _run(x, y, w):

@@ -657,6 +657,69 @@ def test_cuda_one_rank_nccl_mesh_fit_matches_eager(cuda, tmp_path):
         dist.destroy_process_group()
 
 
+def _perfbench_lsq():
+    """The benchmark's plain float64 reference (``perfbench/reference/
+    lsq.py``: plain torch, nothing of the port)."""
+    import importlib.util
+    from pathlib import Path
+    path = (Path(__file__).resolve().parents[1] / "perfbench" / "reference"
+            / "lsq.py")
+    spec = importlib.util.spec_from_file_location("perfbench_lsq", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, path.parents[1]
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_mesh_fit_past_int32_points(cuda, tmp_path):
+    """A 1-rank NCCL mesh fits a block of 2^31 + 2^20 points, normalized
+    (the global domain's MIN and MAX all-reduces, the map, the plain
+    moments kernel past int32 indices, the SUM all-reduce): its excess
+    SSE over the float64 least squares (``lsq``, the benchmark's sums
+    added over rows of 2^20 points) stays inside the mesh cell's limit,
+    and its count is exact."""
+    import json
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.launch import mesh as mesh_lib
+    lsq, bench = _perfbench_lsq()
+    limit = json.loads((bench / "limits" / "mesh.colossal.json")
+                       .read_text())["sse_excess"]
+    n = (1 << 31) + (1 << 20)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.rand(n, generator=g, device=cuda).mul_(4).sub_(2)
+    y = torch.full_like(x, 0.75).mul_(x).add_(-0.2).mul_(x).add_(-1.0)
+    y.mul_(x).add_(0.5)
+    y.add_(torch.randn(n, generator=g, device=cuda), alpha=0.1)
+    torch.cuda.set_device(cuda.index or 0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=timedelta(seconds=120))
+    try:
+        K.reset_launch_counts()
+        spec = api.FitSpec(degree=3,
+                           numerics=api.NumericsPolicy(normalize=True))
+        res = spec.distributed(mesh_lib.make_host_mesh(data=1))(x, y)
+        assert K.launch_counts()["moments_plain"] == 1
+        c = res.poly.coeffs.double().cpu().numpy()
+        shift, scale = float(res.poly.domain_shift), float(
+            res.poly.domain_scale)
+        assert float(res.report.count) == n
+    finally:
+        dist.destroy_process_group()
+    s = lsq.row_sums(x.view(-1, 1 << 20), y.view(-1, 1 << 20), 3)
+    sums = lsq.Sums(s.s.sum(0), s.r.sum(0), s.yy.sum(0))
+    del x, y, s
+    c_ref = lsq.solve(sums, 0.0)
+    got = torch.as_tensor(lsq.rebase(c, shift, scale, 0.0, 1.0),
+                          device=cuda)
+    excess = float(lsq.excess(sums, c_ref, lsq.sse(sums, c_ref), got))
+    assert excess <= limit, excess
+
+
 ZOO_ARCHS = ("dbrx-132b", "phi3.5-moe-42b-a6.6b", "internlm2-1.8b", "yi-6b",
              "qwen1.5-4b", "gemma2-27b", "llava-next-mistral-7b")
 

@@ -232,6 +232,73 @@ def test_collective_payload_does_not_grow_with_n(one_rank, spec):
                            "max": 0}
 
 
+NORMALIZED = api.FitSpec(degree=3,
+                         numerics=api.NumericsPolicy(normalize=True))
+
+
+def test_mesh_fit_nests_its_spans(one_rank):
+    """One normalized fit: ``api.distributed`` holds ``fit.domain`` with
+    the MIN and MAX all-reduces, then the moments' SUM all-reduce; the
+    collective counter reads as before the spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import spans
+    x, y = _series(4096)
+    run = NORMALIZED.distributed(one_rank)
+    spans.clear()
+    engine.reset_collective_counter()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            run(x, y)
+        rec = spans.recorded()
+    finally:
+        spans.clear()
+
+    def kids(i):
+        return sorted((s for s in rec if s.parent == i),
+                      key=lambda s: s.start_us)
+
+    assert [s.name for s in kids(-1)] == ["api.distributed"]
+    root = rec.index(kids(-1)[0])
+    assert [s.name for s in kids(root)] == [
+        "fit.domain", "fit.plan", "fit.moments", "mesh.allreduce",
+        "fit.solve", "fit.report"]
+    domain = rec.index(kids(root)[0])
+    assert [s.name for s in kids(domain)] == ["mesh.allreduce"] * 2
+    for s in rec:
+        assert s.end_us is not None
+        if s.parent >= 0:
+            up = rec[s.parent]
+            assert up.start_us <= s.start_us and s.end_us <= up.end_us
+    assert engine.collective_counter() == {
+        "calls": 3, "bytes": 4 * (2 + 23), "sum": 1, "min": 1, "max": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_domain_apply_keeps_the_bits_of_the_two_step_map(one_rank,
+                                                         monkeypatch, dtype):
+    """The mesh fit maps x once, through ``Domain.apply``, whose one
+    temporary gives the bits of ``(x - shift) * scale``."""
+    from repro_torch.core import basis
+    seen = []
+    real = basis.Domain.apply
+
+    def spy(dom, x):
+        out = real(dom, x)
+        seen.append((dom, x, out))
+        return out
+
+    monkeypatch.setattr(basis.Domain, "apply", spy)
+    x, y = (a.to(dtype) * 1.7 + 0.3 for a in _series(4096))
+    res = NORMALIZED.distributed(one_rank)(x, y)
+    (dom, xin, out), = ((d, a, o) for d, a, o in seen if a is x)
+    assert out.dtype == dtype
+    assert float(dom.scale) != 1.0 and float(dom.shift) != 0.0
+    assert torch.equal(out, (x - dom.shift) * dom.scale)
+    assert torch.equal(res.poly.domain_shift, dom.shift)
+    assert torch.equal(res.poly.domain_scale, dom.scale)
+
+
 def test_forced_kernel_with_chebyshev_raises_eagerly(one_rank):
     with pytest.raises(ValueError, match="monomial"):
         core.make_distributed_fit(one_rank, 2, basis="chebyshev",

@@ -375,9 +375,33 @@ def main() -> int:
         res2 = api.fit(x2, y2, spec)
     finally:
         solve_lib.solve_with_fallback = solve_entry
+    mapped2 = K.mapped_launches()
     rep2 = core.fit_report_streamed(res2.poly, x2, y2)
     torch.cuda.synchronize()
     launches2 = K.launch_counts()
+    require(mapped2 == 1, f"phase2 one mapped moments launch for one fit: "
+            f"{mapped2}")
+    # the domain map runs inside the moments kernel's load: PyTorch's
+    # non-vectorized subtraction and scaling kernels, which mapped x before
+    # (each a pass over x, longer than the moments kernel), run inside the
+    # fit only on the small (B, k) tensors of the solve and the report
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof2:
+        api.fit(x2, y2, spec)
+        torch.cuda.synchronize()
+    fit2_kernels = _trace_device_us(prof2)[2]
+    moments2_us = sum(t for k, t in fit2_kernels.items()
+                      if "moments_reg_kernel" in k)
+    map2_us = {k[:120]: t for k, t in fit2_kernels.items()
+               if "gpu_kernel_impl_nocast" in k
+               and ("CUDAFunctor_add" in k or "MulFunctor" in k)}
+    require(moments2_us > 0 and all(t < 0.02 * moments2_us
+                                    for t in map2_us.values()),
+            f"phase2 api.fit: moments {moments2_us:.1f} us, the map's "
+            f"kernels {map2_us}")
+    log(f"phase2 api.fit device: moments_reg_kernel {moments2_us:.1f} us; "
+        f"nocast add/mul (small tensors) {sum(map2_us.values()):.1f} us "
+        f"in {len(map2_us)} kernels")
     require(launches2["moments_packed"] >= 1, "moments_packed not launched")
     require(launches2["fused_report"] >= 1, "fused_report not launched")
     require(launches2["solve_small"] == len(solve_inputs) == 1,
@@ -423,6 +447,38 @@ def main() -> int:
             x2, y2, None, 3)),
         bytes=2 * x2.numel() * 4 + B2 * 25 * 4, points=x2.numel(),
         flops=(6 * 3 + 6) * x2.numel(), shape=f"B={B2} n={N2} deg 3 f32")
+    # the same launch with a normalized map, against it on x mapped first
+    # by Domain.apply (the two-step path): the same bits, and the time of
+    # the unmapped launch, in turns in this process
+    dom2 = core.Domain.from_data(x2)
+    xd2 = dom2.apply(x2)
+
+    def packed_mapped():
+        return K.moments_packed(x2, y2, degree=3, shift=dom2.shift,
+                                scale=dom2.scale)
+
+    def packed_premapped():
+        return K.moments_packed(xd2, y2, degree=3)
+
+    require(torch.equal(packed_mapped(), packed_premapped()),
+            "phase2 mapped moments_packed is not bit-equal to the launch on "
+            "Domain.apply(x)")
+    turns = {"mapped": [], "premapped": []}
+    for _ in range(3):
+        turns["mapped"].append(cuda_ms(torch, packed_mapped))
+        turns["premapped"].append(cuda_ms(torch, packed_premapped))
+    mapped_ms = statistics.median(turns["mapped"])
+    premapped_ms = statistics.median(turns["premapped"])
+    rows["moments_packed_mapped"] = dict(
+        ms=mapped_ms, unmapped_ms=premapped_ms,
+        mapped_over_unmapped=mapped_ms / premapped_ms, turns=turns,
+        bytes=rows["moments_packed"]["bytes"],
+        points=rows["moments_packed"]["points"],
+        shape=f"B={B2} n={N2} deg 3 f32, shift {float(dom2.shift):.3g} "
+              f"scale {float(dom2.scale):.3g}")
+    log(f"phase2 moments_packed mapped {mapped_ms:.4f} ms, on mapped x "
+        f"{premapped_ms:.4f} ms ({mapped_ms / premapped_ms:.4f})")
+    del xd2
     cf = c2.contiguous()
     got = K.fused_report(x2, y2, None, cf)
     abs_e, rel = block_rel_err(got.T, chunked(torch, lambda lo, hi:
@@ -586,6 +642,24 @@ def main() -> int:
             **({"phase13_fold_max_abs_err": mesh_out["fold_max_abs_err"],
                 "phase13_fold_max_rel_err": mesh_out["fold_max_rel_err"]}
                if name == mesh_out["fold_kernel"] else {})})
+    # beside row 2: moments_packed mapping x as it loads it (the domain
+    # map of api.fit and the mesh fit), timed against the unmapped launch
+    # on x mapped first; the same bytes, so the same bound
+    r = rows["moments_packed_mapped"]
+    packed = next(k for k in kernels if k["name"] == "moments_packed")
+    kernels.insert(kernels.index(packed) + 1, {
+        "name": "moments_packed_mapped", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moments.cu",
+        "replaces": replaces["moments_packed"][0],
+        "jax_body": replaces["moments_packed"][1],
+        "phase2_mapped_launches": mapped2,
+        **{k: r[k] for k in ("ms", "unmapped_ms", "mapped_over_unmapped",
+                             "turns", "shape")},
+        "bound_ms": packed["bound_ms"], "bound_by": packed["bound_by"],
+        "library_ms": None,
+        "roofline_frac": perfgate.roofline_fraction(
+            r["points"] / r["ms"] / 1e3, hbm_spec),
+        "gb_per_s": r["bytes"] / (r["ms"] * 1e-3) / 1e9})
     # the solve kernel replaces no TPU kernel (the reference leaves the
     # solve to jnp.linalg): its plain version is the torch chain
     r = rows["solve_small"]

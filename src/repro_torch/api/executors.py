@@ -100,8 +100,8 @@ def _fit_lse_fixed(x: torch.Tensor, y: torch.Tensor,
     pol = plan.numerics
     with spans.span("fit.domain"):
         dom = _spec_domain(spec, x, pol.normalize)
-        xd = dom.apply(x)
-    m = engine_lib.compute_moments(plan, xd, y, w)
+    # x stays raw: the moment pass maps it as it reads it
+    m = engine_lib.compute_moments(plan, x, y, w, domain=dom)
     ms = m.regularized(spec.ridge) if spec.ridge else m
     poly = fit_lib.fit_from_moments(
         ms, solver=pol.solver, fallback=pol.fallback, cond_cap=pol.cond_cap,
@@ -273,7 +273,9 @@ def make_distributed(spec: FitSpec, mesh, *,
     the fold-stack all-reduce of a DegreeSearch live in
     ``core.distributed.make_spec_executor``.  Each call is one
     ``api.distributed`` span (``obs.spans``), holding ``fit.domain`` (the
-    global domain and its map) and a ``mesh.allreduce`` a collective."""
+    global domain; for IRLS, LSPIA and a degree search also the map of x,
+    which a plain LSE fit's moment kernel does as it loads x) and a
+    ``mesh.allreduce`` a collective."""
     runner, kind = distributed_lib.make_spec_executor(
         spec, mesh, data_axes=data_axes)
     if spec.is_search:

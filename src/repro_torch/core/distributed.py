@@ -116,19 +116,23 @@ def local_moments(x: torch.Tensor, y: torch.Tensor, degree: int, *,
                   weights: torch.Tensor | None = None,
                   accum_dtype=None,
                   engine: str = "auto",
-                  use_kernel: bool | None = None) -> moments_lib.Moments:
+                  use_kernel: bool | None = None,
+                  domain: basis_lib.Domain | None = None
+                  ) -> moments_lib.Moments:
     """One rank's moment accumulation over its own block.
 
     Routes through ``engine.plan_fit`` on the block's device (a CUDA
     block takes the kernels), which validates the basis on kernel paths:
-    forcing the kernel with a non-monomial basis raises here.
-    ``use_kernel`` is a deprecated alias of ``engine=``."""
+    forcing the kernel with a non-monomial basis raises here.  With a
+    ``domain``, x is raw and the moments are those of ``domain.apply(x)``
+    (``engine.compute_moments``).  ``use_kernel`` is a deprecated alias of
+    ``engine=``."""
     plan = engine_lib.plan_fit(
         tuple(x.shape), degree, basis=basis, dtype=x.dtype,
         weighted=weights is not None,
         engine=engine_lib.resolve_engine(engine, use_kernel),
         accum_dtype=accum_dtype, device=x.device)
-    return engine_lib.compute_moments(plan, x, y, weights)
+    return engine_lib.compute_moments(plan, x, y, weights, domain=domain)
 
 
 def psum_moments(m: moments_lib.Moments, mesh,
@@ -253,11 +257,13 @@ def make_spec_executor(spec, mesh, *,
         ladder = gamma ** age
         return ladder if w is None else w * ladder
 
-    def gmoments(xt, y, w):
-        """One global accumulation: the block's moments + the all-reduce."""
+    def gmoments(xt, y, w, domain=None):
+        """One global accumulation: the block's moments + the all-reduce
+        (with ``domain``, xt is raw and mapped by the moment pass)."""
         return psum_moments(
             local_moments(xt, y, md, basis=spec.basis, weights=w,
-                          accum_dtype=accum, engine=spec.engine),
+                          accum_dtype=accum, engine=spec.engine,
+                          domain=domain),
             mesh, data_axes)
 
     def solve(m):
@@ -315,11 +321,13 @@ def make_spec_executor(spec, mesh, *,
         return coeffs, cond, used, m, reweight(coeffs), delta <= tol, it
 
     # ------------------------------------------------------------ programs
-    def prepare(x, w):
+    def prepare(x, w, mapped=True):
+        """The decayed weights, the domain and x mapped into it (with
+        ``mapped=False`` x raw, for a moment pass that maps it itself)."""
         w = apply_decay(x, w)
         with spans.span("fit.domain"):
             dom = shard_domain(x, w)
-            return w, dom, dom.apply(x)
+            return w, dom, dom.apply(x) if mapped else x
 
     if search:
         def _run(x, y, w):
@@ -384,10 +392,11 @@ def make_spec_executor(spec, mesh, *,
             return mk_poly(coeffs, dom, diag), m, it, conv
 
     else:
-        # plain matricized LSE: the paper's algorithm, mesh-wide
+        # plain matricized LSE: the paper's algorithm, mesh-wide; the
+        # mapped x would feed the moments alone, so the kernel maps it
         def _run(x, y, w):
-            w, dom, xt = prepare(x, w)
-            m = gmoments(xt, y, w)
+            w, dom, x = prepare(x, w, mapped=False)
+            m = gmoments(x, y, w, dom)
             ms = m.regularized(spec.ridge) if spec.ridge else m
             poly = fit_lib.fit_from_moments(ms, solver=pol.solver,
                                             fallback=pol.fallback,

@@ -354,10 +354,14 @@ def collective_counter() -> dict:
 
 @spans.span("fit.moments")
 def compute_moments(plan: FitPlan, x: torch.Tensor, y: torch.Tensor,
-                    weights: torch.Tensor | None = None):
+                    weights: torch.Tensor | None = None, *, domain=None):
     """Execute a plan's moment accumulation.  Returns ``core.Moments``.
 
-    ``x`` must already be domain-mapped if ``plan.numerics.normalize``."""
+    Without ``domain``, ``x`` must already be domain-mapped if
+    ``plan.numerics.normalize``.  With a ``core.Domain``, ``x`` is raw and
+    the result is the moments of ``domain.apply(x)``, bit for bit: a kernel
+    plan maps each x value as the kernel loads it (no mapped copy of x is
+    made), the reference path maps x first."""
     with _MOMENT_COUNTER_LOCK:
         _MOMENT_COUNTER["calls"] += 1
         _MOMENT_COUNTER["points"] += math.prod(x.shape)
@@ -366,7 +370,10 @@ def compute_moments(plan: FitPlan, x: torch.Tensor, y: torch.Tensor,
         return kernel_ops.moments(
             x, y, plan.degree, weights=weights,
             accum_dtype=plan.numerics.accum_dtype, packing=plan.packing,
-            compensated=plan.numerics.compensated, device=x.device)
+            compensated=plan.numerics.compensated, domain=domain,
+            device=x.device)
+    if domain is not None:
+        x = domain.apply(x)
     from repro_torch.core import moments as moments_lib
     return moments_lib.gram_moments(
         x, y, plan.degree, basis=plan.basis, weights=weights,

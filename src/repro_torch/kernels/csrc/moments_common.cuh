@@ -8,6 +8,12 @@
 // arithmetic operation are the kernel's, so the two forms give the same
 // bits for the same (series, split) tasks.
 //
+// A kernel may map x as it loads it: the affine domain map t = (x - shift)
+// * scale (core/basis.py Domain.apply) applied to each x value before the
+// conversion to the accumulation type, so the mapped x is never written to
+// device memory.  The map lives in the kernel bodies, not in a loads policy,
+// so both policies give it the same bits.
+//
 // The arithmetic is pinned in the source, not left to the compiler: each
 // product that feeds a sum is an explicit fused multiply-add (fma_rn), and
 // each product that does not is an explicit rounded multiply (mul_rn),
@@ -53,6 +59,42 @@ __device__ __forceinline__ float mul_rn(float a, float b) {
 __device__ __forceinline__ double mul_rn(double a, double b) {
   return __dmul_rn(a, b);
 }
+
+// (v - s) * k rounded in v's type after each step: the bits of PyTorch's
+// two CUDA ops, torch.sub(x, shift).mul_(scale).  bfloat16: each step in
+// float, rounded to bfloat16, as PyTorch computes a bfloat16 sub and mul.
+__device__ __forceinline__ float map_rn(float v, float s, float k) {
+  return __fmul_rn(__fsub_rn(v, s), k);
+}
+__device__ __forceinline__ double map_rn(double v, double s, double k) {
+  return __dmul_rn(__dsub_rn(v, s), k);
+}
+__device__ __forceinline__ __nv_bfloat16 map_rn(__nv_bfloat16 v,
+                                                __nv_bfloat16 s,
+                                                __nv_bfloat16 k) {
+  const __nv_bfloat16 d = __float2bfloat16_rn(
+      __fsub_rn(__bfloat162float(v), __bfloat162float(s)));
+  return __float2bfloat16_rn(__fmul_rn(__bfloat162float(d),
+                                       __bfloat162float(k)));
+}
+
+// The domain map of a launch, read once per thread before its loop (from
+// device memory: no host read drains the queue).  MAP is a template flag,
+// not a test of shift at run time, so the unmapped kernels are compiled as
+// if the map did not exist: no register of theirs goes to it.
+template <typename TIn, bool MAP>
+struct XMap {
+  TIn s, k;
+  __device__ __forceinline__ XMap(const TIn* shift, const TIn* scale) {
+    if constexpr (MAP) {
+      s = *shift;
+      k = *scale;
+    }
+  }
+  __device__ __forceinline__ TIn operator()(TIn v) const {
+    if constexpr (MAP) return map_rn(v, s, k); else return v;
+  }
+};
 
 // One accumulator; with KAHAN the value is hi + lo.
 template <typename T, bool KAHAN>
@@ -256,12 +298,14 @@ __device__ __forceinline__ void accumulate_tile(
 // the points lo + lane + G j in increasing j, whatever the blocks (a block
 // holds a multiple of G points).
 template <template <typename, typename, int> class Loads, typename TIn,
-          typename TAcc, bool KAHAN, int MAXD, int G>
+          typename TAcc, bool KAHAN, int MAXD, int G, bool MAP>
 __global__ void __launch_bounds__(kThreads)
 moments_reg_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
                    const TAcc* __restrict__ w, int64_t B, int64_t n, int m,
                    int S, LoadArgs la, TAcc* __restrict__ part_hi,
-                   TAcc* __restrict__ part_lo) {
+                   TAcc* __restrict__ part_lo,
+                   const TIn* __restrict__ shift,
+                   const TIn* __restrict__ scale) {
   extern __shared__ __align__(16) char load_smem[];
   constexpr int NS = 3 * MAXD + 3;
   const int lane = threadIdx.x % G;
@@ -271,6 +315,7 @@ moments_reg_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
   if (task >= B * S) return;  // whole group leaves together (G == 32 only)
   const Task<TIn, TAcc> tk(x, y, w, task, n, S);
   const Loads<TIn, TAcc, G> ld(load_smem, group, la, tk);
+  const XMap<TIn, MAP> xm(shift, scale);
 
   Acc<TAcc, KAHAN> a[NS];
 #pragma unroll
@@ -292,7 +337,7 @@ moments_reg_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
       TAcc xv[kInFlight], yv[kInFlight], wv[kInFlight];
 #pragma unroll
       for (int u = 0; u < kInFlight; ++u) {
-        xv[u] = cvt<TAcc>(xs[j + u * G]);
+        xv[u] = cvt<TAcc>(xm(xs[j + u * G]));
         yv[u] = cvt<TAcc>(ys[j + u * G]);
         wv[u] = ws ? ws[j + u * G] : TAcc(1);
       }
@@ -301,7 +346,8 @@ moments_reg_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
         point_update<TAcc, KAHAN, MAXD>(a, xv[u], yv[u], wv[u], m);
     }
     for (; j < len; j += G)
-      point_update<TAcc, KAHAN, MAXD>(a, cvt<TAcc>(xs[j]), cvt<TAcc>(ys[j]),
+      point_update<TAcc, KAHAN, MAXD>(a, cvt<TAcc>(xm(xs[j])),
+                                      cvt<TAcc>(ys[j]),
                                       ws ? ws[j] : TAcc(1), m);
     ld.release(k);
   }
@@ -347,19 +393,23 @@ moments_reg_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
 // Shared-memory path for any degree up to 126: one CTA per task.  Sixteen
 // threads build the weighted power ladder of a tile of points into shared
 // memory; thread t then owns sums t and t + 256 of the 3m+3.  The tiles
-// start at lo + 16 j whatever the blocks (block_n is a multiple of 16).
+// start at lo + 16 j whatever the blocks (block_n is a multiple of 16).  A
+// tile's points past the range stay 0, unmapped, with weight 0.
 template <template <typename, typename, int> class Loads, typename TIn,
-          typename TAcc, bool KAHAN>
+          typename TAcc, bool KAHAN, bool MAP>
 __global__ void __launch_bounds__(kThreads)
 moments_smem_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
                     const TAcc* __restrict__ w, int64_t B, int64_t n, int m,
                     int S, LoadArgs la, TAcc* __restrict__ part_hi,
-                    TAcc* __restrict__ part_lo) {
+                    TAcc* __restrict__ part_lo,
+                    const TIn* __restrict__ shift,
+                    const TIn* __restrict__ scale) {
   extern __shared__ __align__(16) char load_smem[];
   __shared__ TileBuf<TAcc> buf;
   const int64_t task = blockIdx.x;
   const Task<TIn, TAcc> tk(x, y, w, task, n, S);
   const Loads<TIn, TAcc, kThreads> ld(load_smem, 0, la, tk);
+  const XMap<TIn, MAP> xm(shift, scale);
   const int npow = 2 * m + 1;
   const int t = threadIdx.x;
 
@@ -377,7 +427,7 @@ moments_smem_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
       if (t < kTile) {
         const int64_t j = base + t;
         const bool in = j < len;
-        stage_point(buf, t, in ? cvt<TAcc>(xs[j]) : TAcc(0),
+        stage_point(buf, t, in ? cvt<TAcc>(xm(xs[j])) : TAcc(0),
                     in ? cvt<TAcc>(ys[j]) : TAcc(0),
                     in ? (ws ? ws[j] : TAcc(1)) : TAcc(0), npow);
       }

@@ -31,6 +31,13 @@ by the same bytes, and the ring's shared memory trades resident warps for
 deeper prefetch (``tune.py`` measures that trade).  Its plain version is
 ``moments_block_plain``: the ring changes no arithmetic.
 
+The moment launchers take an optional domain map, ``shift`` and
+``scale``: 0-d tensors of x's dtype on x's device.  The kernels then map
+each x value as they load it, ``(x - shift) * scale`` rounded as
+``core.basis.Domain.apply`` rounds it, so the result has the bits of the
+same launch on ``Domain.apply(x)`` and no mapped copy of x is written.
+The plain versions map first with ``Domain.apply`` itself.
+
 The moment launchers return each series' K×K extended Gram (K = degree+2,
 rows and columns x⁰…xᵐ, y), not the TPU kernels' 128×128 tile: the padding
 and the packed tile's cross-series blocks are MXU artefacts.
@@ -66,12 +73,15 @@ _ACC_CODES = {torch.float32: 0, torch.float64: 1}
 _LAUNCHES = {"moments_plain": 0, "moments_packed": 0,
              "moments_packed_ring": 0, "fused_report": 0, "solve_small": 0}
 _LAUNCHES_LOCK = threading.Lock()
+# moment launches that applied a domain map, of any of the three launchers
+_MAPPED = {"launches": 0}
 
 
 def reset_launch_counts() -> None:
     with _LAUNCHES_LOCK:
         for name in _LAUNCHES:
             _LAUNCHES[name] = 0
+        _MAPPED["launches"] = 0
 
 
 def launch_counts() -> dict:
@@ -79,9 +89,17 @@ def launch_counts() -> dict:
         return dict(_LAUNCHES)
 
 
-def _count_launch(name: str) -> None:
+def mapped_launches() -> int:
+    """Moment launches since the last reset that mapped x as they loaded
+    it (each also counted under its launcher in ``launch_counts()``)."""
+    with _LAUNCHES_LOCK:
+        return _MAPPED["launches"]
+
+
+def _count_launch(name: str, mapped: bool = False) -> None:
     with _LAUNCHES_LOCK:
         _LAUNCHES[name] += 1
+        _MAPPED["launches"] += int(mapped)
 
 
 def packing_factor(degree: int) -> int:
@@ -100,9 +118,14 @@ def splits(b: int, n: int, tasks_per_cta: int, sm_count: int) -> int:
 
 
 # ------------------------------------------------------------ plain versions
-def moments_block_plain(x, y, w, degree: int, accum_dtype=torch.float32):
+def moments_block_plain(x, y, w, degree: int, accum_dtype=torch.float32,
+                        shift=None, scale=None):
     """(B, K, K) extended Gram (W·w)Wᵀ with W = [x⁰…xᵐ, y], built in the
-    accumulation dtype by iterated multiply."""
+    accumulation dtype by iterated multiply; with ``shift`` and ``scale``
+    on ``Domain.apply(x)``."""
+    if shift is not None:
+        from repro_torch.core.basis import Domain
+        x = Domain(shift, scale).apply(x)
     x = x.to(accum_dtype)
     y = y.to(accum_dtype)
     rows = [torch.ones_like(x)]
@@ -152,6 +175,33 @@ def _check_inputs(x, y, w, accum_dtype):
             raise ValueError("inputs must be contiguous")
 
 
+def map_error(x, shift, scale) -> Exception | None:
+    """What the launchers raise for this domain map (None: they take it).
+    The map is both or neither of shift and scale, each a 0-d tensor of
+    x's dtype on x's device."""
+    if shift is None and scale is None:
+        return None
+    if shift is None or scale is None:
+        return ValueError("a domain map needs both shift and scale")
+    for name, t in (("shift", shift), ("scale", scale)):
+        if not isinstance(t, torch.Tensor) or t.ndim != 0:
+            return ValueError(f"{name} must be a 0-d tensor, got "
+                              f"{getattr(t, 'shape', type(t).__name__)}")
+        if t.dtype != x.dtype:
+            return TypeError(f"{name} dtype {t.dtype}: x's {x.dtype} "
+                             "expected")
+        if t.device != x.device:
+            return ValueError(f"{name} on {t.device}: x's device "
+                              f"{x.device} expected")
+    return None
+
+
+def _check_map(x, shift, scale) -> None:
+    err = map_error(x, shift, scale)
+    if err is not None:
+        raise err
+
+
 def _raise_on(err: int, what: str) -> None:
     if err:
         from repro_torch.kernels import build
@@ -171,9 +221,11 @@ def _ring_blocks(n: int, s: int, block_n: int) -> int:
 
 @spans.span("kernels.launch")
 def _launch_moments(layout: int, name: str, x, y, w, degree: int,
-                    accum_dtype, compensated: bool, ring=None):
+                    accum_dtype, compensated: bool, ring=None, shift=None,
+                    scale=None):
     """Launch the moment kernel of ``layout`` (0 plain, 1 packed); with
-    ``ring=(block_n, nbuf)`` the packed layout's ring form."""
+    ``ring=(block_n, nbuf)`` the packed layout's ring form; with ``shift``
+    and ``scale`` (checked by the caller) mapping x as it loads it."""
     from repro_torch.kernels import build
     _check_inputs(x, y, w, accum_dtype)
     if not 0 <= degree <= K_PAD - 2:
@@ -192,7 +244,8 @@ def _launch_moments(layout: int, name: str, x, y, w, degree: int,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         common = (x.data_ptr(), y.data_ptr(), _ptr(w), b, n, degree, s)
-        tail = (part_hi.data_ptr(), _ptr(part_lo), out.data_ptr(), stream)
+        tail = (part_hi.data_ptr(), _ptr(part_lo), out.data_ptr(), stream,
+                _ptr(shift), _ptr(scale))
         codes = (_IN_CODES[x.dtype], _ACC_CODES[accum_dtype],
                  int(compensated))
         if ring is None:
@@ -205,29 +258,35 @@ def _launch_moments(layout: int, name: str, x, y, w, degree: int,
             err = lib.repro_moments_ring(*codes, *common, block_n, nbuf,
                                          *tail)
     _raise_on(err, name)
-    _count_launch(name)
+    _count_launch(name, mapped=shift is not None)
     return out
 
 
 def moments_plain(x, y, w=None, *, degree: int, accum_dtype=torch.float32,
-                  compensated: bool = False) -> torch.Tensor:
-    """(B, K, K) extended Grams; one CTA per (series, n-split).  On a CPU
-    tensor: the plain version."""
+                  compensated: bool = False, shift=None,
+                  scale=None) -> torch.Tensor:
+    """(B, K, K) extended Grams; one CTA per (series, n-split); with
+    ``shift`` and ``scale`` those of ``Domain(shift, scale).apply(x)``.  On
+    a CPU tensor: the plain version."""
+    _check_map(x, shift, scale)
     if x.device.type == "cpu":
-        return moments_block_plain(x, y, w, degree, accum_dtype)
+        return moments_block_plain(x, y, w, degree, accum_dtype, shift, scale)
     return _launch_moments(0, "moments_plain", x, y, w, degree, accum_dtype,
-                           compensated)
+                           compensated, shift=shift, scale=scale)
 
 
 def moments_packed(x, y, w=None, *, degree: int, accum_dtype=torch.float32,
-                   compensated: bool = False) -> torch.Tensor:
+                   compensated: bool = False, shift=None,
+                   scale=None) -> torch.Tensor:
     """(B, K, K) extended Grams; one warp per (series, n-split), eight per
-    CTA (above degree 14 the shared-memory kernel, one CTA per task).  On a
-    CPU tensor: the plain version."""
+    CTA (above degree 14 the shared-memory kernel, one CTA per task); with
+    ``shift`` and ``scale`` those of ``Domain(shift, scale).apply(x)``.  On
+    a CPU tensor: the plain version."""
+    _check_map(x, shift, scale)
     if x.device.type == "cpu":
-        return moments_block_plain(x, y, w, degree, accum_dtype)
+        return moments_block_plain(x, y, w, degree, accum_dtype, shift, scale)
     return _launch_moments(1, "moments_packed", x, y, w, degree, accum_dtype,
-                           compensated)
+                           compensated, shift=shift, scale=scale)
 
 
 def _check_ring(block_n: int, nbuf: int) -> None:
@@ -241,16 +300,20 @@ def _check_ring(block_n: int, nbuf: int) -> None:
 
 def moments_packed_ring(x, y, w=None, *, degree: int, block_n: int,
                         nbuf: int, accum_dtype=torch.float32,
-                        compensated: bool = False) -> torch.Tensor:
+                        compensated: bool = False, shift=None,
+                        scale=None) -> torch.Tensor:
     """(B, K, K) extended Grams, bit-equal to ``moments_packed``, with the
     loads streamed through an ``nbuf``-slot shared-memory ring in blocks
     of ``block_n`` points (``nbuf`` is capped at the blocks of the longest
-    task).  On a CPU tensor: the plain version."""
+    task); the map as ``moments_packed`` takes it.  On a CPU tensor: the
+    plain version."""
     _check_ring(block_n, nbuf)
+    _check_map(x, shift, scale)
     if x.device.type == "cpu":
-        return moments_block_plain(x, y, w, degree, accum_dtype)
+        return moments_block_plain(x, y, w, degree, accum_dtype, shift, scale)
     return _launch_moments(1, "moments_packed_ring", x, y, w, degree,
-                           accum_dtype, compensated, ring=(block_n, nbuf))
+                           accum_dtype, compensated, ring=(block_n, nbuf),
+                           shift=shift, scale=scale)
 
 
 def fused_report(x, y, w, coeffs, *, accum_dtype=torch.float32

@@ -27,11 +27,16 @@ def _true_count(weights, b, n, dtype, device):
     return torch.sum((weights != 0).to(dtype), dim=-1)
 
 
+def _read_as_is(x, y) -> bool:
+    """x and y are of one dtype the kernels read."""
+    return x.dtype == y.dtype and x.dtype in (torch.float32, torch.bfloat16,
+                                              torch.float64)
+
+
 def _kernel_inputs(x, y, weights, accum_dtype):
     """x/y in one dtype the kernels read (else both in accum_dtype),
     weights in accum_dtype; all contiguous."""
-    if x.dtype != y.dtype or x.dtype not in (torch.float32, torch.bfloat16,
-                                             torch.float64):
+    if not _read_as_is(x, y):
         x, y = x.to(accum_dtype), y.to(accum_dtype)
     w = None if weights is None else weights.to(accum_dtype).contiguous()
     return x.contiguous(), y.contiguous(), w
@@ -55,7 +60,7 @@ def _ring_block(degree, n, itemsize, weighted, nbuf, accum_itemsize, dev):
 def moments(x, y, degree: int, *, weights=None, block_n: int | None = None,
             accum_dtype=torch.float32, packing: str = "auto",
             compensated: bool = False, nbuf: int = 0,
-            device=None) -> Moments:
+            domain=None, device=None) -> Moments:
     """Kernel-backed equivalent of ``core.gram_moments``.
 
     Accepts (..., n) inputs of float32, bfloat16 or float64 (the leading
@@ -68,7 +73,11 @@ def moments(x, y, degree: int, *, weights=None, block_n: int | None = None,
     of ``block_n`` points (pick it with ``tune.autotune_block_n``); the
     result has the same bits as ``nbuf=0``.  With ``nbuf=0`` ``block_n``
     is accepted and changes nothing: the grid-streamed kernels read each
-    point straight from device memory.  ``device=None`` means CUDA."""
+    point straight from device memory.  ``domain`` (a ``core.Domain``):
+    the moments of ``domain.apply(x)``, bit for bit; the kernel maps each x
+    value as it loads it, unless x would reach it converted or the
+    domain's scalars are not 0-d in x's dtype on x's device, where x is
+    mapped first.  ``device=None`` means CUDA."""
     if packing not in ("auto", "packed", "plain"):
         raise ValueError(f"packing={packing!r}; expected 'auto', 'packed' "
                          "or 'plain'")
@@ -106,9 +115,17 @@ def moments(x, y, degree: int, *, weights=None, block_n: int | None = None,
         raise ValueError("nbuf (the multi-buffered ring) is a packed-"
                          "kernel knob; this call resolved to the plain "
                          "layout")
+    shift = scale = None
+    if domain is not None:
+        # the kernel maps x where it reads x as it is and takes the map
+        if _read_as_is(xb, yb) and kernel.map_error(
+                xb, domain.shift, domain.scale) is None:
+            shift, scale = domain.shift, domain.scale
+        else:
+            xb = domain.apply(xb)
     xk, yk, wk = _kernel_inputs(xb, yb, weights, accum_dtype)
     common = dict(degree=degree, accum_dtype=accum_dtype,
-                  compensated=compensated)
+                  compensated=compensated, shift=shift, scale=scale)
     if nbuf >= 2:
         if block_n is None:
             block_n = _ring_block(degree, n, xk.element_size(),

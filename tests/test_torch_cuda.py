@@ -72,6 +72,7 @@ def test_cuda_launch_counts_and_fit(cuda):
     assert K.launch_counts() == {"moments_plain": 1, "moments_packed": 1,
                                  "moments_packed_ring": 0,
                                  "fused_report": 1, "solve_small": 2}
+    assert K.mapped_launches() == 2     # each fit's moments map their x
     np.testing.assert_allclose(res.coeffs.cpu().numpy(),
                                np.tile([1.0, 1.0, 0.0, -1.0], (4, 1)),
                                atol=1e-4)
@@ -334,6 +335,132 @@ def test_cuda_ring_kernel_bit_equals_packed(cuda, degree, dtype,
                                             compensated=compensated)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (block_n, nbuf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("accum", [torch.float32, torch.float64])
+@pytest.mark.parametrize("compensated", [False, True])
+def test_cuda_mapped_launch_bit_equals_the_launch_on_mapped_x(
+        cuda, dtype, accum, compensated):
+    """A launch handed the domain map gives the bits of the same launch on
+    ``Domain.apply(x)``: plain, packed and the ring at nbuf 2, at degrees
+    on both register kernels and on the shared-memory kernel (20),
+    weighted or not, for the identity and a normalized domain (scale !=
+    1), on a ragged n; each such launch counts once as mapped."""
+    from repro_torch.core import basis
+    g = torch.Generator(device=cuda).manual_seed(29)
+    b, n = 11, 5003
+    x = (torch.rand(b, n, generator=g, device=cuda) * 4 - 1).to(dtype)
+    y = torch.randn(b, n, generator=g, device=cuda).to(dtype)
+    w = (torch.rand(b, n, generator=g, device=cuda) * (
+        torch.rand(b, n, generator=g, device=cuda) > 0.3)).to(accum)
+    doms = (basis.Domain.identity(dtype, cuda), basis.Domain.from_data(x))
+    assert float(doms[1].scale) != 1.0
+    launchers = (K.moments_plain, K.moments_packed,
+                 lambda *a, **k: K.moments_packed_ring(*a, block_n=128,
+                                                       nbuf=2, **k))
+    launches = 0
+    for dom in doms:
+        xd = dom.apply(x)
+        for degree in (3, 7, 20):
+            for fn in launchers:
+                for wc in (None, w):
+                    kw = dict(degree=degree, accum_dtype=accum,
+                              compensated=compensated)
+                    K.reset_launch_counts()
+                    got = fn(x, y, wc, shift=dom.shift, scale=dom.scale,
+                             **kw)
+                    assert K.mapped_launches() == 1
+                    want = fn(xd, y, wc, **kw)
+                    assert K.mapped_launches() == 1
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (degree, fn, wc is None)
+                    launches += 1
+    assert launches == 36
+
+
+@pytest.mark.cuda
+def test_cuda_fit_maps_x_in_the_moments_kernel(cuda, monkeypatch):
+    """api.fit at the benchmark's (4096, 65536), degree 3: one mapped
+    moments launch a call and coefficients bit-equal to the two-step path
+    (x mapped by ``Domain.apply`` first), whose peak holds one more x."""
+    from repro_torch import api, engine
+    from repro_torch.api import executors
+    g = torch.Generator(device=cuda).manual_seed(29)
+    x = torch.rand(4096, 65536, generator=g, device=cuda) * 4 - 2
+    y = torch.randn(x.shape, generator=g, device=cuda)
+    spec = api.FitSpec(degree=3)
+    real = engine.compute_moments
+
+    def two_step(plan, xin, yin, w=None, *, domain=None):
+        return real(plan, xin if domain is None else domain.apply(xin), yin,
+                    w)
+
+    def call():
+        api.fit(x, y, spec)                  # warm the allocator's pools
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        res = api.fit(x, y, spec)
+        torch.cuda.synchronize()
+        return (res.poly.coeffs, K.mapped_launches(),
+                torch.cuda.max_memory_allocated() - base)
+
+    got, mapped, grew = call()
+    monkeypatch.setattr(executors.engine_lib, "compute_moments", two_step)
+    want, mapped_two, grew_two = call()
+    assert (mapped, mapped_two) == (1, 0)
+    assert torch.equal(got, want)
+    assert abs(grew_two - grew - x.numel() * x.element_size()) <= 2 << 20, \
+        (grew, grew_two)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_mesh_fit_maps_x_in_the_moments_kernel(cuda, tmp_path,
+                                                         monkeypatch):
+    """A normalized fit on a 1-rank NCCL mesh: one mapped moments launch,
+    and the coefficients and domain bit-equal to the two-step path (the
+    block mapped by ``Domain.apply`` before ``local_moments``)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.core import distributed
+    from repro_torch.launch import mesh as mesh_lib
+    torch.cuda.set_device(cuda.index or 0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=timedelta(seconds=60))
+    try:
+        mesh = mesh_lib.make_host_mesh(data=1)
+        g = torch.Generator(device=cuda).manual_seed(31)
+        x = torch.rand(1 << 24, generator=g, device=cuda) * 3 + 1.5
+        y = 0.5 - x + 0.75 * x ** 3 + 0.1 * torch.randn(
+            x.shape, generator=g, device=cuda)
+        spec = api.FitSpec(degree=3,
+                           numerics=api.NumericsPolicy(normalize=True))
+        K.reset_launch_counts()
+        got = spec.distributed(mesh)(x, y)
+        assert K.mapped_launches() == 1
+        assert float(got.poly.domain_scale) != 1.0
+        real = distributed.local_moments
+
+        def two_step(xin, yin, degree, domain=None, **kw):
+            return real(xin if domain is None else domain.apply(xin), yin,
+                        degree, **kw)
+
+        monkeypatch.setattr(distributed, "local_moments", two_step)
+        K.reset_launch_counts()
+        want = spec.distributed(mesh)(x, y)
+        assert K.mapped_launches() == 0
+        for f in ("coeffs", "domain_shift", "domain_scale"):
+            assert torch.equal(getattr(got.poly, f), getattr(want.poly, f)), f
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.cuda

@@ -277,24 +277,33 @@ def test_mesh_fit_nests_its_spans(one_rank):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_domain_apply_keeps_the_bits_of_the_two_step_map(one_rank,
                                                          monkeypatch, dtype):
-    """The mesh fit maps x once, through ``Domain.apply``, whose one
-    temporary gives the bits of ``(x - shift) * scale``."""
+    """The plain mesh fit hands its moment pass raw x and the global
+    domain (a kernel plan maps x as the kernel loads it): the block's
+    moments are bit-equal to those of ``local_moments(Domain.apply(x))``,
+    the one-temporary map whose bits are those of ``(x - shift) *
+    scale``, and the fit carries that domain."""
     from repro_torch.core import basis
     seen = []
-    real = basis.Domain.apply
+    real = distributed.local_moments
 
-    def spy(dom, x):
-        out = real(dom, x)
-        seen.append((dom, x, out))
+    def spy(xin, yin, degree, **kw):
+        out = real(xin, yin, degree, **kw)
+        seen.append((xin, degree, kw, out))
         return out
 
-    monkeypatch.setattr(basis.Domain, "apply", spy)
+    monkeypatch.setattr(distributed, "local_moments", spy)
     x, y = (a.to(dtype) * 1.7 + 0.3 for a in _series(4096))
     res = NORMALIZED.distributed(one_rank)(x, y)
-    (dom, xin, out), = ((d, a, o) for d, a, o in seen if a is x)
-    assert out.dtype == dtype
+    (xin, degree, kw, got), = seen
+    dom = kw.pop("domain")
+    assert xin is x and isinstance(dom, basis.Domain)
     assert float(dom.scale) != 1.0 and float(dom.shift) != 0.0
+    out = dom.apply(x)
+    assert out.dtype == dtype
     assert torch.equal(out, (x - dom.shift) * dom.scale)
+    want = real(out, y, degree, **kw)
+    for f in dataclasses.fields(want):
+        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f
     assert torch.equal(res.poly.domain_shift, dom.shift)
     assert torch.equal(res.poly.domain_scale, dom.scale)
 

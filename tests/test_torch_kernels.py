@@ -199,3 +199,171 @@ def test_kernel_plan_takes_multi_axis_batches():
     np.testing.assert_allclose(tm.weight_sum.numpy(),
                                np.broadcast_to(w[0].sum(-1), (3, 4)),
                                rtol=1e-6)
+
+
+# ------------------------------------------------------------ the domain map
+def _domains(kind, x):
+    from repro_torch.core import basis
+    if kind == "identity":
+        return basis.Domain.identity(x.dtype)
+    return basis.Domain.from_data(x * 1.7 + 0.3)        # scale != 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["identity", "normalized"])
+def test_domain_handed_down_keeps_the_two_step_bits(kind, dtype):
+    """``compute_moments(..., domain=)`` on raw x, on every path, and
+    ``ops.moments(..., domain=)`` on every layout, are bit-equal to the
+    same call on ``Domain.apply(x)``."""
+    from repro_torch import engine
+    x, y, w = (torch.from_numpy(a).to(dtype)
+               for a in _data(13, (5, 203), zero_weights=True))
+    dom = _domains(kind, x)
+    xd = dom.apply(x)
+    assert (kind == "identity") == torch.equal(xd, x)
+    for path in ("reference", "kernel_packed", "kernel_plain"):
+        plan = engine.plan_fit(tuple(x.shape), 3, engine=path, dtype=dtype,
+                               device="cpu")
+        for wc in (None, w):
+            got = engine.compute_moments(plan, x, y, wc, domain=dom)
+            want = engine.compute_moments(plan, xd, y, wc)
+            for f in FIELDS:
+                assert torch.equal(getattr(got, f), getattr(want, f)), \
+                    (path, f)
+    for kw in ({"packing": "plain"}, {"packing": "packed"},
+               {"nbuf": 2, "block_n": 64}):
+        got = ops.moments(x, y, 3, weights=w, domain=dom, device="cpu", **kw)
+        want = ops.moments(xd, y, 3, weights=w, device="cpu", **kw)
+        for f in FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (kw, f)
+
+
+def _no_library():
+    raise AssertionError("the kernel library was asked for")
+
+
+@pytest.mark.parametrize("launcher", ["plain", "packed", "ring"])
+@pytest.mark.parametrize("case,err,match", [
+    ("shift_only", ValueError, "both shift and scale"),
+    ("scale_only", ValueError, "both shift and scale"),
+    ("dtype", TypeError, "dtype"),
+    ("not_0d", ValueError, "0-d"),
+    ("device", ValueError, "device"),
+])
+def test_launchers_refuse_a_bad_map_before_any_launch(monkeypatch, launcher,
+                                                      case, err, match):
+    monkeypatch.setattr(build, "library", _no_library)
+    monkeypatch.setattr(K, "moments_block_plain", _no_library)
+    x, y = (torch.from_numpy(a) for a in _data(14, (2, 40))[:2])
+    shift, scale = torch.tensor(0.5), torch.tensor(2.0)
+    if case == "shift_only":
+        scale = None
+    elif case == "scale_only":
+        shift = None
+    elif case == "dtype":
+        scale = scale.double()
+    elif case == "not_0d":
+        shift = shift.reshape(1)
+    else:
+        shift = torch.empty((), device="meta")
+    fn = {"plain": K.moments_plain, "packed": K.moments_packed,
+          "ring": lambda *a, **k: K.moments_packed_ring(
+              *a, block_n=32, nbuf=2, **k)}[launcher]
+    with pytest.raises(err, match=match):
+        fn(x, y, None, degree=3, shift=shift, scale=scale)
+
+
+class _StubLibrary:
+    """Stands in for the kernel library: records each moment call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def repro_moments(self, *args):
+        self.calls.append(("repro_moments", args))
+        return 0
+
+    def repro_moments_ring(self, *args):
+        self.calls.append(("repro_moments_ring", args))
+        return 0
+
+
+def test_mapped_launches_count_and_reset(monkeypatch):
+    """Each launch that hands the kernel a map counts once in
+    ``mapped_launches()`` (and under its launcher, as any launch does);
+    the map's two pointers go last, None for an unmapped launch;
+    ``reset_launch_counts()`` clears it with the rest."""
+    import contextlib
+    import types
+    lib = _StubLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(K, "_check_inputs", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+    x, y, _ = _data(15, (2, 64))
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+    shift, scale = torch.tensor(0.25), torch.tensor(4.0)
+    K.reset_launch_counts()
+    K._launch_moments(0, "moments_plain", x, y, None, 3, torch.float32,
+                      False, shift=shift, scale=scale)
+    K._launch_moments(1, "moments_packed", x, y, None, 3, torch.float32,
+                      False)
+    K._launch_moments(1, "moments_packed_ring", x, y, None, 3,
+                      torch.float32, True, ring=(32, 2), shift=shift,
+                      scale=scale)
+    assert K.mapped_launches() == 2
+    assert K.launch_counts() == {"moments_plain": 1, "moments_packed": 1,
+                                 "moments_packed_ring": 1,
+                                 "fused_report": 0, "solve_small": 0}
+    (n0, a0), (n1, a1), (n2, a2) = lib.calls
+    assert (n0, n1, n2) == ("repro_moments",) * 2 + ("repro_moments_ring",)
+    assert a0[-3:] == (7, shift.data_ptr(), scale.data_ptr())
+    assert a1[-3:] == (7, None, None)
+    assert a2[-3:] == (7, shift.data_ptr(), scale.data_ptr())
+    K.reset_launch_counts()
+    assert K.mapped_launches() == 0
+    assert sum(K.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("case", ["domain_float64", "domain_shaped",
+                                  "x_float16", "x_y_dtypes"])
+def test_ops_maps_first_where_the_kernel_cannot(monkeypatch, case):
+    """Where x would reach the kernel converted, or the domain's scalars
+    are not 0-d in x's dtype, ``ops.moments`` maps x first and hands the
+    launcher no map: the bits of the two-step path all the same."""
+    from repro_torch.core import basis
+    seen = []
+    real = K.moments_packed
+
+    def spy(*args, **kw):
+        seen.append((kw["shift"], kw["scale"]))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(K, "moments_packed", spy)
+    x, y = (torch.from_numpy(a) for a in _data(16, (3, 50))[:2])
+    dom = basis.Domain.from_data(x)
+    if case == "domain_float64":
+        dom = basis.Domain(dom.shift.double(), dom.scale.double())
+    elif case == "domain_shaped":
+        dom = basis.Domain(dom.shift.reshape(1), dom.scale.reshape(1))
+    elif case == "x_float16":
+        x = x.half()
+        dom = basis.Domain(dom.shift.half(), dom.scale.half())
+    else:
+        y = y.double()
+    got = ops.moments(x, y, 3, domain=dom, packing="packed", device="cpu")
+    want = ops.moments(dom.apply(x), y, 3, packing="packed", device="cpu")
+    assert seen == [(None, None), (None, None)]
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    # the same call with a 0-d domain of x's dtype hands the map down
+    if case == "domain_float64":
+        seen.clear()
+        dom32 = basis.Domain.from_data(x)
+        ops.moments(x, y, 3, domain=dom32, packing="packed", device="cpu")
+        assert seen == [(dom32.shift, dom32.scale)]

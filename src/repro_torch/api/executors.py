@@ -68,13 +68,6 @@ def _decay_weights(x: torch.Tensor, weights, decay: float):
     return lad if weights is None else weights * lad
 
 
-def _spec_domain(spec: FitSpec, x: torch.Tensor,
-                 normalize: bool) -> basis_lib.Domain:
-    default = (basis_lib.Domain.from_data(x) if normalize
-               else basis_lib.Domain.identity(x.dtype, x.device))
-    return spec.domain_or(default, dtype=x.dtype, device=x.device)
-
-
 def _fit_lse_fixed(x: torch.Tensor, y: torch.Tensor,
                    weights: torch.Tensor | None, spec: FitSpec):
     """The paper's pipeline for one fixed-degree LSE spec: plan → domain →
@@ -84,7 +77,9 @@ def _fit_lse_fixed(x: torch.Tensor, y: torch.Tensor,
     if spec.numerics.solver in RAW_DATA_SOLVERS:
         # the MATLAB-polyfit baseline: QR directly on the (weighted)
         # Vandermonde rows — no moments, no squaring of κ
-        dom = _spec_domain(spec, x, spec.numerics.normalize)
+        dom = basis_lib.Domain.choose(
+            x, normalize=spec.numerics.normalize,
+            pinned=spec.domain_or(dtype=x.dtype, device=x.device))
         v = basis_lib.vandermonde(dom.apply(x), degree, spec.basis)
         yy = y
         if w is not None:
@@ -99,7 +94,9 @@ def _fit_lse_fixed(x: torch.Tensor, y: torch.Tensor,
                      device=x.device)
     pol = plan.numerics
     with spans.span("fit.domain"):
-        dom = _spec_domain(spec, x, pol.normalize)
+        dom = basis_lib.Domain.choose(
+            x, normalize=pol.normalize,
+            pinned=spec.domain_or(dtype=x.dtype, device=x.device))
     # x stays raw: the moment pass maps it as it reads it
     m = engine_lib.compute_moments(plan, x, y, w, domain=dom)
     ms = m.regularized(spec.ridge) if spec.ridge else m
@@ -273,9 +270,9 @@ def make_distributed(spec: FitSpec, mesh, *,
     the fold-stack all-reduce of a DegreeSearch live in
     ``core.distributed.make_spec_executor``.  Each call is one
     ``api.distributed`` span (``obs.spans``), holding ``fit.domain`` (the
-    global domain; for IRLS, LSPIA and a degree search also the map of x,
-    which a plain LSE fit's moment kernel does as it loads x) and a
-    ``mesh.allreduce`` a collective."""
+    global domain; for IRLS, LSPIA and a degree search a second one holds
+    the map of x, which a plain LSE fit's moment kernel does as it loads
+    x) and a ``mesh.allreduce`` a collective."""
     runner, kind = distributed_lib.make_spec_executor(
         spec, mesh, data_axes=data_axes)
     if spec.is_search:

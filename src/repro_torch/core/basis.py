@@ -44,6 +44,19 @@ class Domain:
                             one)
         return Domain(shift.to(x.dtype), scale.to(x.dtype))
 
+    @staticmethod
+    def choose(x: torch.Tensor, *, normalize: bool, pinned=None,
+               from_data=None) -> "Domain":
+        """A fit's domain: ``pinned`` when one is pinned; else, under
+        ``normalize``, ``from_data(x)`` (by default ``Domain.from_data``);
+        else the identity in x's dtype on x's device.  x is read only when
+        nothing is pinned."""
+        if pinned is not None:
+            return pinned
+        if normalize:
+            return (from_data or Domain.from_data)(x)
+        return Domain.identity(x.dtype, x.device)
+
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """``(x - shift) * scale`` with one temporary the size of x: the
         difference is scaled in place (the same operations, the same

@@ -229,14 +229,6 @@ def make_spec_executor(spec, mesh, *,
                          if spec.numerics.solver != "auto" else ds.solver)
         ladder_fb, ladder_cap = ds.fallback, ds.cond_cap
 
-    def shard_domain(x, w):
-        pinned = spec.domain_or(None, dtype=x.dtype, device=x.device)
-        if pinned is not None:
-            return pinned
-        if pol.normalize:
-            return _global_domain(x, w, mesh, data_axes)
-        return basis_lib.Domain.identity(x.dtype, x.device)
-
     def apply_decay(x, w):
         """spec.decay as the GLOBAL age ladder: each rank reconstructs its
         points' global positions from its mesh coordinates (blocks are
@@ -321,17 +313,20 @@ def make_spec_executor(spec, mesh, *,
         return coeffs, cond, used, m, reweight(coeffs), delta <= tol, it
 
     # ------------------------------------------------------------ programs
-    def prepare(x, w, mapped=True):
-        """The decayed weights, the domain and x mapped into it (with
-        ``mapped=False`` x raw, for a moment pass that maps it itself)."""
+    def prepare(x, w):
+        """The decayed weights and the domain (global under normalize)."""
         w = apply_decay(x, w)
         with spans.span("fit.domain"):
-            dom = shard_domain(x, w)
-            return w, dom, dom.apply(x) if mapped else x
+            return w, basis_lib.Domain.choose(
+                x, normalize=pol.normalize,
+                pinned=spec.domain_or(dtype=x.dtype, device=x.device),
+                from_data=lambda x: _global_domain(x, w, mesh, data_axes))
 
     if search:
         def _run(x, y, w):
-            w, dom, xt = prepare(x, w)
+            w, dom = prepare(x, w)
+            with spans.span("fit.domain"):
+                xt = dom.apply(x)
             if spec.method == "irls":
                 # robust weights established mesh-wide at max_degree, then
                 # the usual single-pass weighted ladder on top of them
@@ -365,7 +360,9 @@ def make_spec_executor(spec, mesh, *,
 
     elif spec.method == "irls":
         def _run(x, y, w):
-            w, dom, xt = prepare(x, w)
+            w, dom = prepare(x, w)
+            with spans.span("fit.domain"):
+                xt = dom.apply(x)
             coeffs, cond, used, m, _, conv, it = irls_weights_loop(xt, y, w)
             diag = fit_lib.FitDiagnostics(
                 condition=cond, fallback_used=used, solver=pol.solver,
@@ -378,7 +375,9 @@ def make_spec_executor(spec, mesh, *,
             # point is reached by Richardson on the all-reduced normal
             # equations (moment-space LSPIA): matrix-free sweeps would
             # cost one collective per iteration instead of one in all
-            w, dom, xt = prepare(x, w)
+            w, dom = prepare(x, w)
+            with spans.span("fit.domain"):
+                xt = dom.apply(x)
             m = gmoments(xt, y, w)
             ms = m.regularized(spec.ridge) if spec.ridge else m
             opts = spec.lspia
@@ -395,7 +394,7 @@ def make_spec_executor(spec, mesh, *,
         # plain matricized LSE: the paper's algorithm, mesh-wide; the
         # mapped x would feed the moments alone, so the kernel maps it
         def _run(x, y, w):
-            w, dom, x = prepare(x, w, mapped=False)
+            w, dom = prepare(x, w)
             m = gmoments(x, y, w, dom)
             ms = m.regularized(spec.ridge) if spec.ridge else m
             poly = fit_lib.fit_from_moments(ms, solver=pol.solver,
@@ -666,10 +665,9 @@ def async_lspia_fit(x, y, spec, *, n_shards: int = 4,
          else as_tensor(weights, dev, x.dtype))
     plan = spec.plan(tuple(x.shape), x.dtype, weighted=weights is not None,
                      workload="lspia", device=dev)
-    dom = spec.domain_or(
-        basis_lib.Domain.from_data(x) if plan.numerics.normalize
-        else basis_lib.Domain.identity(x.dtype, dev), dtype=x.dtype,
-        device=dev)
+    dom = basis_lib.Domain.choose(
+        x, normalize=plan.numerics.normalize,
+        pinned=spec.domain_or(dtype=x.dtype, device=dev))
     xt = dom.apply(x)
 
     # safe synchronous step (same settledness-gated trace clamp as the

@@ -263,10 +263,9 @@ def lspia_fit_spec(x: torch.Tensor, y: torch.Tensor,
     opts = spec.lspia
     plan = spec.plan(tuple(x.shape), x.dtype, weighted=weights is not None,
                      workload="lspia", device=x.device)
-    dom = spec.domain_or(
-        basis_lib.Domain.from_data(x) if plan.numerics.normalize
-        else basis_lib.Domain.identity(x.dtype, x.device),
-        dtype=x.dtype, device=x.device)
+    dom = basis_lib.Domain.choose(
+        x, normalize=plan.numerics.normalize,
+        pinned=spec.domain_or(dtype=x.dtype, device=x.device))
     xt = dom.apply(x)
     w = torch.ones_like(x) if weights is None else weights
     if spec.decay < 1.0:

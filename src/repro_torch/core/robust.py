@@ -128,10 +128,9 @@ def irls_fit(x: torch.Tensor, y: torch.Tensor,
     plan = spec.plan(tuple(x.shape), x.dtype, weighted=True,
                      device=x.device)
     pol = plan.numerics
-    dom = spec.domain_or(
-        basis_lib.Domain.from_data(x) if pol.normalize
-        else basis_lib.Domain.identity(x.dtype, x.device),
-        dtype=x.dtype, device=x.device)
+    dom = basis_lib.Domain.choose(
+        x, normalize=pol.normalize,
+        pinned=spec.domain_or(dtype=x.dtype, device=x.device))
     xt = dom.apply(x)
     base_w = torch.ones_like(x) if weights is None else weights
     if spec.decay < 1.0:

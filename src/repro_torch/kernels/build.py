@@ -129,7 +129,7 @@ def load(path) -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     signatures = {
         # the domain map's shift and scale come last: a library built
-        # before them takes an unmapped call (both None) unchanged
+        # before them ignores the two
         "repro_moments": ([i32, i32, i32, i32, p, p, p, i64, i64, i32, i32,
                            p, p, p, p, p, p], i32),
         "repro_moments_ring": ([i32, i32, i32, p, p, p, i64, i64, i32, i32,

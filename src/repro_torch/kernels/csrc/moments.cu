@@ -36,10 +36,11 @@
 // order and assembles the Gram.  No float atomics: two runs on the same
 // input give the same bits.
 //
-// The domain map.  Given shift and scale (two scalars on the card), the
-// moment kernels map each x value as they load it, (x - shift) * scale
-// rounded as PyTorch's sub and mul round it, so a fit that normalizes its
-// domain reads x once and writes no mapped copy (moments_common.cuh).
+// The domain map.  Every launch hands shift and scale (two scalars on the
+// card: a fit's domain, or the identity's 0 and 1), and the moment kernels
+// map each x value as they load it, (x - shift) * scale rounded as
+// PyTorch's sub and mul round it, so a fit that normalizes its domain reads
+// x once and writes no mapped copy (moments_common.cuh).
 //
 // Compensated (Kahan) accumulation keeps a (hi, lo) pair per sum in the
 // per-thread loop, in the warp/CTA reductions and in the cross-split pass.
@@ -119,23 +120,23 @@ __global__ void report_finalize(const TAcc* __restrict__ part, int64_t B,
 }
 
 // ---------------------------------------------------------------------------
-template <typename TIn, typename TAcc, bool KAHAN, int MAXD, bool MAP>
+template <typename TIn, typename TAcc, bool KAHAN, int MAXD>
 void launch_reg(int layout, const TIn* x, const TIn* y, const TAcc* w,
                 int64_t B, int64_t n, int m, int S, TAcc* ph, TAcc* pl,
                 const TIn* shift, const TIn* scale, cudaStream_t st) {
   const int64_t tasks = B * S;
   if (layout == 0) {
-    moments_reg_kernel<DirectLoads, TIn, TAcc, KAHAN, MAXD, kThreads, MAP>
+    moments_reg_kernel<DirectLoads, TIn, TAcc, KAHAN, MAXD, kThreads>
         <<<blocks_for(tasks, 1), kThreads, 0, st>>>(
             x, y, w, B, n, m, S, LoadArgs{}, ph, pl, shift, scale);
   } else {
-    moments_reg_kernel<DirectLoads, TIn, TAcc, KAHAN, MAXD, 32, MAP>
+    moments_reg_kernel<DirectLoads, TIn, TAcc, KAHAN, MAXD, 32>
         <<<blocks_for(tasks, kWarps), kThreads, 0, st>>>(
             x, y, w, B, n, m, S, LoadArgs{}, ph, pl, shift, scale);
   }
 }
 
-template <typename TIn, typename TAcc, bool KAHAN, bool MAP>
+template <typename TIn, typename TAcc, bool KAHAN>
 cudaError_t launch_moments(int layout, const void* xv, const void* yv,
                            const void* wv, int64_t B, int64_t n, int m, int S,
                            void* phv, void* plv, void* outv,
@@ -149,16 +150,16 @@ cudaError_t launch_moments(int layout, const void* xv, const void* yv,
   TAcc* ph = static_cast<TAcc*>(phv);
   TAcc* pl = static_cast<TAcc*>(plv);
   if (m <= 3) {
-    launch_reg<TIn, TAcc, KAHAN, 3, MAP>(layout, x, y, w, B, n, m, S, ph, pl,
-                                         shift, scale, st);
+    launch_reg<TIn, TAcc, KAHAN, 3>(layout, x, y, w, B, n, m, S, ph, pl,
+                                    shift, scale, st);
   } else if (m <= 7) {
-    launch_reg<TIn, TAcc, KAHAN, 7, MAP>(layout, x, y, w, B, n, m, S, ph, pl,
-                                         shift, scale, st);
+    launch_reg<TIn, TAcc, KAHAN, 7>(layout, x, y, w, B, n, m, S, ph, pl,
+                                    shift, scale, st);
   } else if (m <= kRegMaxDegree) {
-    launch_reg<TIn, TAcc, KAHAN, kRegMaxDegree, MAP>(
-        layout, x, y, w, B, n, m, S, ph, pl, shift, scale, st);
+    launch_reg<TIn, TAcc, KAHAN, kRegMaxDegree>(layout, x, y, w, B, n, m, S,
+                                                ph, pl, shift, scale, st);
   } else {
-    moments_smem_kernel<DirectLoads, TIn, TAcc, KAHAN, MAP>
+    moments_smem_kernel<DirectLoads, TIn, TAcc, KAHAN>
         <<<blocks_for(B * S, 1), kThreads, 0, st>>>(
             x, y, w, B, n, m, S, LoadArgs{}, ph, pl, shift, scale);
   }
@@ -168,33 +169,18 @@ cudaError_t launch_moments(int layout, const void* xv, const void* yv,
                                       static_cast<TAcc*>(outv), st);
 }
 
-// shift == nullptr: the unmapped kernels; else the mapped ones
-template <typename TIn, typename TAcc, bool MAP>
-cudaError_t launch_moments_m(int kahan, int layout, const void* x,
-                             const void* y, const void* w, int64_t B,
-                             int64_t n, int m, int S, void* ph, void* pl,
-                             void* out, const void* shift, const void* scale,
-                             cudaStream_t st) {
-  return kahan ? launch_moments<TIn, TAcc, true, MAP>(
-                     layout, x, y, w, B, n, m, S, ph, pl, out, shift, scale,
-                     st)
-               : launch_moments<TIn, TAcc, false, MAP>(
-                     layout, x, y, w, B, n, m, S, ph, pl, out, shift, scale,
-                     st);
-}
-
 template <typename TIn, typename TAcc>
 cudaError_t launch_moments_k(int kahan, int layout, const void* x,
                              const void* y, const void* w, int64_t B,
                              int64_t n, int m, int S, void* ph, void* pl,
                              void* out, const void* shift, const void* scale,
                              cudaStream_t st) {
-  return shift ? launch_moments_m<TIn, TAcc, true>(kahan, layout, x, y, w, B,
-                                                   n, m, S, ph, pl, out,
-                                                   shift, scale, st)
-               : launch_moments_m<TIn, TAcc, false>(kahan, layout, x, y, w,
-                                                    B, n, m, S, ph, pl, out,
-                                                    shift, scale, st);
+  return kahan ? launch_moments<TIn, TAcc, true>(layout, x, y, w, B, n, m, S,
+                                                 ph, pl, out, shift, scale,
+                                                 st)
+               : launch_moments<TIn, TAcc, false>(layout, x, y, w, B, n, m, S,
+                                                  ph, pl, out, shift, scale,
+                                                  st);
 }
 
 template <typename TIn, typename TAcc>
@@ -217,18 +203,16 @@ cudaError_t launch_report(const void* x, const void* y, const void* w,
 
 // in_code: 0 float32, 1 bfloat16, 2 float64; acc_code: 0 float32, 1 float64.
 // shift, scale: the domain map's two scalars in the input type on the
-// card, applied to x as it is loaded, or both nullptr for no map (they
-// come last, so a caller that passes none keeps the older signature's
-// argument order).  Returns a cudaError_t (0 on success); an unknown code,
-// or one of shift and scale without the other, returns
-// cudaErrorInvalidValue.
+// card, applied to x as it is loaded (the identity's 0 and 1 for none).
+// Returns a cudaError_t (0 on success); an unknown code, or a null shift
+// or scale, returns cudaErrorInvalidValue.
 extern "C" int repro_moments(int layout, int in_code, int acc_code, int kahan,
                              const void* x, const void* y, const void* w,
                              int64_t B, int64_t n, int m, int S, void* part_hi,
                              void* part_lo, void* out, void* stream,
                              const void* shift, const void* scale) {
-  if (m < 0 || m > kMaxDegree || S < 1 ||
-      (shift == nullptr) != (scale == nullptr))
+  if (m < 0 || m > kMaxDegree || S < 1 || shift == nullptr ||
+      scale == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (in_code * 2 + acc_code) {

@@ -8,11 +8,12 @@
 // arithmetic operation are the kernel's, so the two forms give the same
 // bits for the same (series, split) tasks.
 //
-// A kernel may map x as it loads it: the affine domain map t = (x - shift)
+// Every kernel maps x as it loads it: the affine domain map t = (x - shift)
 // * scale (core/basis.py Domain.apply) applied to each x value before the
 // conversion to the accumulation type, so the mapped x is never written to
-// device memory.  The map lives in the kernel bodies, not in a loads policy,
-// so both policies give it the same bits.
+// device memory.  A caller with no domain hands the identity's 0 and 1,
+// under which the map gives x's own bits.  The map lives in the kernel
+// bodies, not in a loads policy, so both policies give it the same bits.
 //
 // The arithmetic is pinned in the source, not left to the compiler: each
 // product that feeds a sum is an explicit fused multiply-add (fma_rn), and
@@ -79,20 +80,15 @@ __device__ __forceinline__ __nv_bfloat16 map_rn(__nv_bfloat16 v,
 }
 
 // The domain map of a launch, read once per thread before its loop (from
-// device memory: no host read drains the queue).  MAP is a template flag,
-// not a test of shift at run time, so the unmapped kernels are compiled as
-// if the map did not exist: no register of theirs goes to it.
-template <typename TIn, bool MAP>
+// device memory: no host read drains the queue).  (v - 0) * 1 is v in
+// every input type, so the identity's launch has the bits of x unmapped.
+template <typename TIn>
 struct XMap {
   TIn s, k;
-  __device__ __forceinline__ XMap(const TIn* shift, const TIn* scale) {
-    if constexpr (MAP) {
-      s = *shift;
-      k = *scale;
-    }
-  }
+  __device__ __forceinline__ XMap(const TIn* shift, const TIn* scale)
+      : s(*shift), k(*scale) {}
   __device__ __forceinline__ TIn operator()(TIn v) const {
-    if constexpr (MAP) return map_rn(v, s, k); else return v;
+    return map_rn(v, s, k);
   }
 };
 
@@ -298,7 +294,7 @@ __device__ __forceinline__ void accumulate_tile(
 // the points lo + lane + G j in increasing j, whatever the blocks (a block
 // holds a multiple of G points).
 template <template <typename, typename, int> class Loads, typename TIn,
-          typename TAcc, bool KAHAN, int MAXD, int G, bool MAP>
+          typename TAcc, bool KAHAN, int MAXD, int G>
 __global__ void __launch_bounds__(kThreads)
 moments_reg_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
                    const TAcc* __restrict__ w, int64_t B, int64_t n, int m,
@@ -315,7 +311,7 @@ moments_reg_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
   if (task >= B * S) return;  // whole group leaves together (G == 32 only)
   const Task<TIn, TAcc> tk(x, y, w, task, n, S);
   const Loads<TIn, TAcc, G> ld(load_smem, group, la, tk);
-  const XMap<TIn, MAP> xm(shift, scale);
+  const XMap<TIn> xm(shift, scale);
 
   Acc<TAcc, KAHAN> a[NS];
 #pragma unroll
@@ -396,7 +392,7 @@ moments_reg_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
 // start at lo + 16 j whatever the blocks (block_n is a multiple of 16).  A
 // tile's points past the range stay 0, unmapped, with weight 0.
 template <template <typename, typename, int> class Loads, typename TIn,
-          typename TAcc, bool KAHAN, bool MAP>
+          typename TAcc, bool KAHAN>
 __global__ void __launch_bounds__(kThreads)
 moments_smem_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
                     const TAcc* __restrict__ w, int64_t B, int64_t n, int m,
@@ -409,7 +405,7 @@ moments_smem_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
   const int64_t task = blockIdx.x;
   const Task<TIn, TAcc> tk(x, y, w, task, n, S);
   const Loads<TIn, TAcc, kThreads> ld(load_smem, 0, la, tk);
-  const XMap<TIn, MAP> xm(shift, scale);
+  const XMap<TIn> xm(shift, scale);
   const int npow = 2 * m + 1;
   const int t = threadIdx.x;
 

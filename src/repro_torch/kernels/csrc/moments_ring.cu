@@ -204,7 +204,7 @@ int64_t ring_cta_bytes(int m, int block_n, int nbuf, bool weighted) {
 }
 
 // ---------------------------------------------------------------------------
-template <typename TIn, typename TAcc, bool KAHAN, bool MAP>
+template <typename TIn, typename TAcc, bool KAHAN>
 cudaError_t launch_ring(const void* xv, const void* yv, const void* wv,
                         int64_t B, int64_t n, int m, int S, int block_n,
                         int nbuf, void* phv, void* plv, void* outv,
@@ -238,34 +238,19 @@ cudaError_t launch_ring(const void* xv, const void* yv, const void* wv,
   };
   cudaError_t err;
   if (m <= 3)
-    err = run(moments_reg_kernel<RingLoads, TIn, TAcc, KAHAN, 3, 32, MAP>,
+    err = run(moments_reg_kernel<RingLoads, TIn, TAcc, KAHAN, 3, 32>,
               kWarps);
   else if (m <= 7)
-    err = run(moments_reg_kernel<RingLoads, TIn, TAcc, KAHAN, 7, 32, MAP>,
+    err = run(moments_reg_kernel<RingLoads, TIn, TAcc, KAHAN, 7, 32>,
               kWarps);
   else if (m <= kRegMaxDegree)
     err = run(moments_reg_kernel<RingLoads, TIn, TAcc, KAHAN, kRegMaxDegree,
-                                 32, MAP>, kWarps);
+                                 32>, kWarps);
   else
-    err = run(moments_smem_kernel<RingLoads, TIn, TAcc, KAHAN, MAP>, 1);
+    err = run(moments_smem_kernel<RingLoads, TIn, TAcc, KAHAN>, 1);
   if (err != cudaSuccess) return err;
   return launch_finalize<TAcc, KAHAN>(ph, pl, B, m, S,
                                       static_cast<TAcc*>(outv), st);
-}
-
-// shift == nullptr: the unmapped kernels; else the mapped ones
-template <typename TIn, typename TAcc, bool MAP>
-cudaError_t launch_ring_m(int kahan, const void* x, const void* y,
-                          const void* w, int64_t B, int64_t n, int m, int S,
-                          int block_n, int nbuf, void* ph, void* pl,
-                          void* out, const void* shift, const void* scale,
-                          cudaStream_t st) {
-  return kahan ? launch_ring<TIn, TAcc, true, MAP>(x, y, w, B, n, m, S,
-                                                   block_n, nbuf, ph, pl, out,
-                                                   shift, scale, st)
-               : launch_ring<TIn, TAcc, false, MAP>(x, y, w, B, n, m, S,
-                                                    block_n, nbuf, ph, pl,
-                                                    out, shift, scale, st);
 }
 
 template <typename TIn, typename TAcc>
@@ -274,12 +259,12 @@ cudaError_t launch_ring_k(int kahan, const void* x, const void* y,
                           int block_n, int nbuf, void* ph, void* pl,
                           void* out, const void* shift, const void* scale,
                           cudaStream_t st) {
-  return shift ? launch_ring_m<TIn, TAcc, true>(kahan, x, y, w, B, n, m, S,
-                                                block_n, nbuf, ph, pl, out,
-                                                shift, scale, st)
-               : launch_ring_m<TIn, TAcc, false>(kahan, x, y, w, B, n, m, S,
-                                                 block_n, nbuf, ph, pl, out,
-                                                 shift, scale, st);
+  return kahan ? launch_ring<TIn, TAcc, true>(x, y, w, B, n, m, S, block_n,
+                                              nbuf, ph, pl, out, shift,
+                                              scale, st)
+               : launch_ring<TIn, TAcc, false>(x, y, w, B, n, m, S, block_n,
+                                               nbuf, ph, pl, out, shift,
+                                               scale, st);
 }
 
 }  // namespace
@@ -287,9 +272,10 @@ cudaError_t launch_ring_k(int kahan, const void* x, const void* y,
 // The ring form of repro_moments' packed layout (layout 1).  block_n: a
 // positive multiple of 32; nbuf >= 2.  in_code 0 float32, 1 bfloat16,
 // 2 float64; acc_code 0 float32, 1 float64.  shift, scale: the domain map,
-// as repro_moments takes it (both nullptr: none).  Returns a cudaError_t
-// (0 on success); bad arguments return cudaErrorInvalidValue, a ring
-// beyond the card's shared memory the error of cudaFuncSetAttribute.
+// as repro_moments takes it.  Returns a cudaError_t (0 on success); bad
+// arguments (a null shift or scale among them) return
+// cudaErrorInvalidValue, a ring beyond the card's shared memory the error
+// of cudaFuncSetAttribute.
 extern "C" int repro_moments_ring(int in_code, int acc_code, int kahan,
                                   const void* x, const void* y,
                                   const void* w, int64_t B, int64_t n, int m,
@@ -297,7 +283,7 @@ extern "C" int repro_moments_ring(int in_code, int acc_code, int kahan,
                                   void* part_lo, void* out, void* stream,
                                   const void* shift, const void* scale) {
   if (m < 0 || m > kMaxDegree || S < 1 || block_n < 32 || block_n % 32 ||
-      nbuf < 2 || (shift == nullptr) != (scale == nullptr))
+      nbuf < 2 || shift == nullptr || scale == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (in_code * 2 + acc_code) {

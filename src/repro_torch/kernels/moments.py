@@ -31,12 +31,12 @@ by the same bytes, and the ring's shared memory trades resident warps for
 deeper prefetch (``tune.py`` measures that trade).  Its plain version is
 ``moments_block_plain``: the ring changes no arithmetic.
 
-The moment launchers take an optional domain map, ``shift`` and
-``scale``: 0-d tensors of x's dtype on x's device.  The kernels then map
-each x value as they load it, ``(x - shift) * scale`` rounded as
-``core.basis.Domain.apply`` rounds it, so the result has the bits of the
-same launch on ``Domain.apply(x)`` and no mapped copy of x is written.
-The plain versions map first with ``Domain.apply`` itself.
+The moment kernels map each x value as they load it, ``(x - shift) *
+scale`` rounded as ``core.basis.Domain.apply`` rounds it: the launchers'
+``shift`` and ``scale`` (0-d tensors of x's dtype on x's device), else
+the identity's 0 and 1, under which x keeps its bits.  So the result has
+the bits of the same launch on ``Domain.apply(x)`` and no mapped copy of
+x is written.  The plain versions map first, with ``Domain.apply``.
 
 The moment launchers return each series' K×K extended Gram (K = degree+2,
 rows and columns x⁰…xᵐ, y), not the TPU kernels' 128×128 tile: the padding
@@ -68,20 +68,19 @@ _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _ACC_CODES = {torch.float32: 0, torch.float64: 1}
 
 # launches per kernel since the last reset (read by chip_smoke.py and tests;
-# "solve_small" counts kernels/solve.py's); the lock keeps the counts exact
-# when fleet workers launch from threads
+# "solve_small" counts kernels/solve.py's) and the identity map per (dtype,
+# device), copied to the card synchronously (any stream may read it); the
+# lock keeps both exact when fleet workers launch from threads
 _LAUNCHES = {"moments_plain": 0, "moments_packed": 0,
              "moments_packed_ring": 0, "fused_report": 0, "solve_small": 0}
+_IDENTITY: dict = {}
 _LAUNCHES_LOCK = threading.Lock()
-# moment launches that applied a domain map, of any of the three launchers
-_MAPPED = {"launches": 0}
 
 
 def reset_launch_counts() -> None:
     with _LAUNCHES_LOCK:
         for name in _LAUNCHES:
             _LAUNCHES[name] = 0
-        _MAPPED["launches"] = 0
 
 
 def launch_counts() -> dict:
@@ -89,17 +88,19 @@ def launch_counts() -> dict:
         return dict(_LAUNCHES)
 
 
-def mapped_launches() -> int:
-    """Moment launches since the last reset that mapped x as they loaded
-    it (each also counted under its launcher in ``launch_counts()``)."""
-    with _LAUNCHES_LOCK:
-        return _MAPPED["launches"]
-
-
-def _count_launch(name: str, mapped: bool = False) -> None:
+def _count_launch(name: str) -> None:
     with _LAUNCHES_LOCK:
         _LAUNCHES[name] += 1
-        _MAPPED["launches"] += int(mapped)
+
+
+def _identity_map(x) -> tuple:
+    key = (x.dtype, x.device)
+    with _LAUNCHES_LOCK:
+        if key not in _IDENTITY:
+            _IDENTITY[key] = tuple(torch.tensor(v, dtype=x.dtype,
+                                                device=x.device)
+                                   for v in (0, 1))
+        return _IDENTITY[key]
 
 
 def packing_factor(degree: int) -> int:
@@ -224,8 +225,8 @@ def _launch_moments(layout: int, name: str, x, y, w, degree: int,
                     accum_dtype, compensated: bool, ring=None, shift=None,
                     scale=None):
     """Launch the moment kernel of ``layout`` (0 plain, 1 packed); with
-    ``ring=(block_n, nbuf)`` the packed layout's ring form; with ``shift``
-    and ``scale`` (checked by the caller) mapping x as it loads it."""
+    ``ring=(block_n, nbuf)`` the packed layout's ring form; mapping x by
+    ``shift`` and ``scale`` (checked by the caller), else the identity."""
     from repro_torch.kernels import build
     _check_inputs(x, y, w, accum_dtype)
     if not 0 <= degree <= K_PAD - 2:
@@ -240,12 +241,14 @@ def _launch_moments(layout: int, name: str, x, y, w, degree: int,
     part_hi = torch.empty((b, s, nsum), dtype=accum_dtype, device=x.device)
     part_lo = torch.empty_like(part_hi) if compensated else None
     out = torch.empty((b, k, k), dtype=accum_dtype, device=x.device)
+    if shift is None:
+        shift, scale = _identity_map(x)
     lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         common = (x.data_ptr(), y.data_ptr(), _ptr(w), b, n, degree, s)
         tail = (part_hi.data_ptr(), _ptr(part_lo), out.data_ptr(), stream,
-                _ptr(shift), _ptr(scale))
+                shift.data_ptr(), scale.data_ptr())
         codes = (_IN_CODES[x.dtype], _ACC_CODES[accum_dtype],
                  int(compensated))
         if ring is None:
@@ -258,7 +261,7 @@ def _launch_moments(layout: int, name: str, x, y, w, degree: int,
             err = lib.repro_moments_ring(*codes, *common, block_n, nbuf,
                                          *tail)
     _raise_on(err, name)
-    _count_launch(name, mapped=shift is not None)
+    _count_launch(name)
     return out
 
 

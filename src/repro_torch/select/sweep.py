@@ -219,8 +219,7 @@ def select_degree(x, y, max_degree: int = 8, *, folds: int = 5,
         solver=solver, fallback=fallback, cond_cap=cond_cap, device=dev,
         workload="select")
     do_norm = plan.numerics.normalize if normalize is None else bool(normalize)
-    dom = (basis_lib.Domain.from_data(x) if do_norm
-           else basis_lib.Domain.identity(x.dtype, dev))
+    dom = basis_lib.Domain.choose(x, normalize=do_norm)
     xt = dom.apply(x)
 
     if folds >= 2:

@@ -94,3 +94,88 @@ def test_monomial_coeffs_from_domain(name, npd, td, rtol):
         4)
     assert got.dtype == td
     np.testing.assert_allclose(got.numpy(), ref, rtol=rtol, atol=rtol)
+
+
+# ------------------------------------------------------- the one domain rule
+def _inline_rule(x, normalize, pinned):
+    """The rule as each caller wrote it inline before ``Domain.choose``:
+    the data's domain (or the identity) computed, then the pin over it."""
+    default = (tb.Domain.from_data(x) if normalize
+               else tb.Domain.identity(x.dtype, x.device))
+    return default if pinned is None else pinned
+
+
+@pytest.mark.parametrize("td", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["pinned", "normalize", "neither"])
+def test_domain_choose_is_the_inline_rule(case, td):
+    """The pin, else the data's domain under normalize, else the
+    identity; the data are read (``from_data``) only when nothing is
+    pinned."""
+    x = torch.from_numpy(_x(2, (3, 17))).to(td)
+    pinned = (tb.Domain(torch.tensor(0.5, dtype=td),
+                        torch.tensor(0.25, dtype=td))
+              if case == "pinned" else None)
+    normalize = case != "neither"
+    calls = []
+
+    def from_data(xin):
+        calls.append(xin)
+        return tb.Domain.from_data(xin)
+
+    want = _inline_rule(x, normalize, pinned)
+    for kw in ({}, {"from_data": from_data}):
+        got = tb.Domain.choose(x, normalize=normalize, pinned=pinned, **kw)
+        assert torch.equal(got.shift, want.shift)
+        assert torch.equal(got.scale, want.scale)
+        assert (got.shift.dtype, got.shift.ndim) == (td, 0)
+    assert len(calls) == (case == "normalize")
+    assert all(c is x for c in calls)
+
+
+def _surface_fit(surface, x, y, domain):
+    """One fit of ``surface`` under ``normalize=True``, with ``domain``
+    pinned (None: nothing pinned); its coefficients."""
+    from repro_torch import api
+    from repro_torch.core import distributed
+    from repro_torch.engine.plan import NumericsPolicy
+    method = {"fit": "lse", "irls": "irls"}.get(surface, "lspia")
+    spec = api.FitSpec(degree=3, method=method, domain=domain,
+                       numerics=NumericsPolicy(normalize=True),
+                       lspia=api.LSPIAOptions(max_iter=60))
+    if surface == "async_lspia":
+        return distributed.async_lspia_fit(x[0], y[0], spec, n_shards=2,
+                                           device="cpu").poly.coeffs
+    return api.fit(x, y, spec, device="cpu").poly.coeffs
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+@pytest.mark.parametrize("surface", ["fit", "irls", "lspia", "async_lspia"])
+def test_each_surface_reads_the_data_only_when_nothing_is_pinned(
+        monkeypatch, surface, pinned):
+    """Under ``normalize=True``: with a domain pinned, no surface calls
+    ``Domain.from_data``; with none pinned, it calls it once, and its
+    coefficients are bit-equal to the same fit with that data domain
+    pinned."""
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(rng.uniform(-3.0, 5.0, (2, 300)).astype(np.float32))
+    y = 1.0 - 0.5 * x + 0.1 * x ** 3 + torch.from_numpy(
+        rng.normal(0.0, 0.1, x.shape).astype(np.float32))
+    data_dom = tb.Domain.from_data(x[0] if surface == "async_lspia" else x)
+    calls = []
+    real = tb.Domain.from_data
+
+    def spy(xin):
+        calls.append(xin)
+        return real(xin)
+
+    monkeypatch.setattr(tb.Domain, "from_data", staticmethod(spy))
+    if pinned:
+        _surface_fit(surface, x, y, (0.5, 0.25))
+        assert calls == []
+        return
+    got = _surface_fit(surface, x, y, None)
+    assert len(calls) == 1
+    want = _surface_fit(surface, x, y,
+                        (float(data_dom.shift), float(data_dom.scale)))
+    assert len(calls) == 1
+    assert torch.equal(got, want)

@@ -72,7 +72,13 @@ def test_cuda_launch_counts_and_fit(cuda):
     assert K.launch_counts() == {"moments_plain": 1, "moments_packed": 1,
                                  "moments_packed_ring": 0,
                                  "fused_report": 1, "solve_small": 2}
-    assert K.mapped_launches() == 2     # each fit's moments map their x
+    # a launch handed no map maps by the identity: the bits of the same
+    # launch handed an identity domain of its own
+    ident = core.Domain.identity(x.dtype, cuda)
+    for fn in (K.moments_plain, K.moments_packed):
+        assert torch.equal(fn(x, y, degree=3),
+                           fn(x, y, degree=3, shift=ident.shift,
+                              scale=ident.scale))
     np.testing.assert_allclose(res.coeffs.cpu().numpy(),
                                np.tile([1.0, 1.0, 0.0, -1.0], (4, 1)),
                                atol=1e-4)
@@ -348,7 +354,7 @@ def test_cuda_mapped_launch_bit_equals_the_launch_on_mapped_x(
     ``Domain.apply(x)``: plain, packed and the ring at nbuf 2, at degrees
     on both register kernels and on the shared-memory kernel (20),
     weighted or not, for the identity and a normalized domain (scale !=
-    1), on a ragged n; each such launch counts once as mapped."""
+    1), on a ragged n; each launch counts once under its launcher."""
     from repro_torch.core import basis
     g = torch.Generator(device=cuda).manual_seed(29)
     b, n = 11, 5003
@@ -372,9 +378,8 @@ def test_cuda_mapped_launch_bit_equals_the_launch_on_mapped_x(
                     K.reset_launch_counts()
                     got = fn(x, y, wc, shift=dom.shift, scale=dom.scale,
                              **kw)
-                    assert K.mapped_launches() == 1
                     want = fn(xd, y, wc, **kw)
-                    assert K.mapped_launches() == 1
+                    assert sum(K.launch_counts().values()) == 2
                     torch.cuda.synchronize()
                     assert torch.equal(got, want), (degree, fn, wc is None)
                     launches += 1
@@ -383,9 +388,10 @@ def test_cuda_mapped_launch_bit_equals_the_launch_on_mapped_x(
 
 @pytest.mark.cuda
 def test_cuda_fit_maps_x_in_the_moments_kernel(cuda, monkeypatch):
-    """api.fit at the benchmark's (4096, 65536), degree 3: one mapped
-    moments launch a call and coefficients bit-equal to the two-step path
-    (x mapped by ``Domain.apply`` first), whose peak holds one more x."""
+    """api.fit at the benchmark's (4096, 65536), degree 3: one moments
+    launch a call, mapping x, and coefficients bit-equal to the two-step
+    path (x mapped by ``Domain.apply`` first, then the identity's launch),
+    whose peak holds one more x."""
     from repro_torch import api, engine
     from repro_torch.api import executors
     g = torch.Generator(device=cuda).manual_seed(29)
@@ -406,13 +412,15 @@ def test_cuda_fit_maps_x_in_the_moments_kernel(cuda, monkeypatch):
         K.reset_launch_counts()
         res = api.fit(x, y, spec)
         torch.cuda.synchronize()
-        return (res.poly.coeffs, K.mapped_launches(),
+        return (res.poly.coeffs, K.launch_counts(),
                 torch.cuda.max_memory_allocated() - base)
 
-    got, mapped, grew = call()
+    got, launches, grew = call()
     monkeypatch.setattr(executors.engine_lib, "compute_moments", two_step)
-    want, mapped_two, grew_two = call()
-    assert (mapped, mapped_two) == (1, 0)
+    want, launches_two, grew_two = call()
+    assert launches == launches_two == {
+        "moments_plain": 0, "moments_packed": 1, "moments_packed_ring": 0,
+        "fused_report": 0, "solve_small": 1}
     assert torch.equal(got, want)
     assert abs(grew_two - grew - x.numel() * x.element_size()) <= 2 << 20, \
         (grew, grew_two)
@@ -421,9 +429,9 @@ def test_cuda_fit_maps_x_in_the_moments_kernel(cuda, monkeypatch):
 @pytest.mark.cuda
 def test_cuda_nccl_mesh_fit_maps_x_in_the_moments_kernel(cuda, tmp_path,
                                                          monkeypatch):
-    """A normalized fit on a 1-rank NCCL mesh: one mapped moments launch,
-    and the coefficients and domain bit-equal to the two-step path (the
-    block mapped by ``Domain.apply`` before ``local_moments``)."""
+    """A normalized fit on a 1-rank NCCL mesh: one moments launch, mapping
+    the block, and the coefficients and domain bit-equal to the two-step
+    path (the block mapped by ``Domain.apply`` before ``local_moments``)."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -445,7 +453,7 @@ def test_cuda_nccl_mesh_fit_maps_x_in_the_moments_kernel(cuda, tmp_path,
                            numerics=api.NumericsPolicy(normalize=True))
         K.reset_launch_counts()
         got = spec.distributed(mesh)(x, y)
-        assert K.mapped_launches() == 1
+        assert K.launch_counts()["moments_plain"] == 1
         assert float(got.poly.domain_scale) != 1.0
         real = distributed.local_moments
 
@@ -456,7 +464,7 @@ def test_cuda_nccl_mesh_fit_maps_x_in_the_moments_kernel(cuda, tmp_path,
         monkeypatch.setattr(distributed, "local_moments", two_step)
         K.reset_launch_counts()
         want = spec.distributed(mesh)(x, y)
-        assert K.mapped_launches() == 0
+        assert K.launch_counts()["moments_plain"] == 1
         for f in ("coeffs", "domain_shift", "domain_scale"):
             assert torch.equal(getattr(got.poly, f), getattr(want.poly, f)), f
     finally:

@@ -308,6 +308,54 @@ def test_domain_apply_keeps_the_bits_of_the_two_step_map(one_rank,
     assert torch.equal(res.poly.domain_scale, dom.scale)
 
 
+MESH_METHODS = {
+    "lse": {},
+    "irls": {"method": "irls",
+             "irls": api.IRLSOptions(max_iter=3, tol=0.0)},
+    "lspia": {"method": "lspia"},
+    "search": {"degree": api.DegreeSearch(max_degree=5, folds=0)},
+}
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+@pytest.mark.parametrize("method", list(MESH_METHODS))
+def test_mesh_reads_the_global_domain_only_when_nothing_is_pinned(
+        one_rank, monkeypatch, method, pinned):
+    """Under ``normalize=True`` the mesh's data-derived domain is the
+    global one (``_global_domain``: the block's min/max and two
+    all-reduces).  With a domain pinned no program computes it; with none
+    pinned each computes it once, and its coefficients and domain are
+    bit-equal to the same fit with that domain pinned."""
+    calls = []
+    real = distributed._global_domain
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(distributed, "_global_domain", spy)
+    kw = {"degree": 3, **MESH_METHODS[method]}
+    x, y = _series(4096)
+
+    def fit(domain):
+        spec = api.FitSpec(domain=domain,
+                           numerics=api.NumericsPolicy(normalize=True), **kw)
+        return spec.distributed(one_rank)(x, y).poly
+
+    if pinned:
+        got = fit((0.5, 0.25))
+        assert calls == []
+        assert (float(got.domain_shift), float(got.domain_scale)) == (
+            0.5, 0.25)
+        return
+    got = fit(None)
+    assert len(calls) == 1
+    want = fit((float(got.domain_shift), float(got.domain_scale)))
+    assert len(calls) == 1
+    for f in ("coeffs", "domain_shift", "domain_scale"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
 def test_forced_kernel_with_chebyshev_raises_eagerly(one_rank):
     with pytest.raises(ValueError, match="monomial"):
         core.make_distributed_fit(one_rank, 2, basis="chebyshev",

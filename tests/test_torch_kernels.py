@@ -289,10 +289,10 @@ class _StubLibrary:
 
 
 def test_mapped_launches_count_and_reset(monkeypatch):
-    """Each launch that hands the kernel a map counts once in
-    ``mapped_launches()`` (and under its launcher, as any launch does);
-    the map's two pointers go last, None for an unmapped launch;
-    ``reset_launch_counts()`` clears it with the rest."""
+    """Every launch hands the kernel two map pointers, last: the caller's
+    shift and scale, or else the identity's 0 and 1 in x's dtype on x's
+    device, the same tensors on a second launch.  Each launch counts once
+    under its launcher; ``reset_launch_counts()`` clears the counts."""
     import contextlib
     import types
     lib = _StubLibrary()
@@ -314,19 +314,28 @@ def test_mapped_launches_count_and_reset(monkeypatch):
     K._launch_moments(1, "moments_packed", x, y, None, 3, torch.float32,
                       False)
     K._launch_moments(1, "moments_packed_ring", x, y, None, 3,
-                      torch.float32, True, ring=(32, 2), shift=shift,
-                      scale=scale)
-    assert K.mapped_launches() == 2
-    assert K.launch_counts() == {"moments_plain": 1, "moments_packed": 1,
+                      torch.float32, True, ring=(32, 2))
+    K._launch_moments(1, "moments_packed", x.double(), y.double(), None, 3,
+                      torch.float64, False)
+    assert K.launch_counts() == {"moments_plain": 1, "moments_packed": 2,
                                  "moments_packed_ring": 1,
                                  "fused_report": 0, "solve_small": 0}
-    (n0, a0), (n1, a1), (n2, a2) = lib.calls
-    assert (n0, n1, n2) == ("repro_moments",) * 2 + ("repro_moments_ring",)
-    assert a0[-3:] == (7, shift.data_ptr(), scale.data_ptr())
-    assert a1[-3:] == (7, None, None)
-    assert a2[-3:] == (7, shift.data_ptr(), scale.data_ptr())
+    names = [name for name, _ in lib.calls]
+    assert names == ["repro_moments"] * 2 + ["repro_moments_ring",
+                                             "repro_moments"]
+    ident = K._identity_map(x)
+    ident64 = K._identity_map(x.double())
+    for t, dtype, v in zip(ident + ident64, [torch.float32] * 2
+                           + [torch.float64] * 2, [0.0, 1.0] * 2):
+        assert (t.ndim, t.dtype, t.device, float(t)) == (0, dtype, x.device,
+                                                         v)
+    tails = [args[-3:] for _, args in lib.calls]
+    assert tails[0] == (7, shift.data_ptr(), scale.data_ptr())
+    assert tails[1] == tails[2] == (7, ident[0].data_ptr(),
+                                    ident[1].data_ptr())
+    assert tails[3] == (7, ident64[0].data_ptr(), ident64[1].data_ptr())
+    assert all(None not in tail for tail in tails)
     K.reset_launch_counts()
-    assert K.mapped_launches() == 0
     assert sum(K.launch_counts().values()) == 0
 
 
@@ -367,3 +376,48 @@ def test_ops_maps_first_where_the_kernel_cannot(monkeypatch, case):
         dom32 = basis.Domain.from_data(x)
         ops.moments(x, y, 3, domain=dom32, packing="packed", device="cpu")
         assert seen == [(dom32.shift, dom32.scale)]
+
+
+def test_identity_map_is_made_once_across_threads(monkeypatch):
+    """Fleet workers launch from threads: however many ask at once, one
+    (shift, scale) pair is made for a (dtype, device) and every caller
+    gets that pair (20 rounds, each from an empty cache)."""
+    import sys
+    import threading
+    made = []
+    real = torch.tensor
+
+    def counting(*a, **kw):
+        made.append(kw.get("dtype"))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(torch, "tensor", counting)
+    xs = [torch.zeros(3, dtype=d) for d in (torch.float32, torch.float64)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _ in range(20):
+            monkeypatch.setattr(K, "_IDENTITY", {})
+            made.clear()
+            got = [[] for _ in range(16)]
+            start = threading.Barrier(len(got))
+
+            def work(i):
+                start.wait(timeout=30)
+                for _ in range(5):
+                    got[i].append(K._identity_map(xs[i % 2]))
+
+            threads = [threading.Thread(target=work, args=(i,))
+                       for i in range(len(got))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+            assert sorted(made, key=str) == sorted(
+                [torch.float32] * 2 + [torch.float64] * 2, key=str)
+            for i, pairs in enumerate(got):
+                want = K._IDENTITY[(xs[i % 2].dtype, xs[i % 2].device)]
+                assert len(pairs) == 5 and all(p is want for p in pairs)
+    finally:
+        sys.setswitchinterval(old)

@@ -308,3 +308,37 @@ def test_spec_search_validation_matches_reference():
     assert api.FitSpec(degree=4).folds == 0
     with pytest.raises(ValueError):
         api.spec_from_legacy("best")
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+def test_search_reads_the_data_domain_only_when_nothing_is_pinned(
+        monkeypatch, pinned):
+    """A normalized degree search calls ``Domain.from_data`` once on the
+    data when nothing is pinned, and never when a domain is pinned (x is
+    mapped by the pin and searched unnormalized); either way the winner's
+    polynomial carries the domain it was fitted in."""
+    from repro_torch.core import basis
+    calls = []
+    real = basis.Domain.from_data
+
+    def spy(xin):
+        calls.append(xin)
+        return real(xin)
+
+    monkeypatch.setattr(basis.Domain, "from_data", staticmethod(spy))
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(rng.uniform(-3.0, 5.0, (2, 400)).astype(np.float32))
+    y = 1.0 - 0.5 * x + 0.1 * x ** 3
+    spec = api.FitSpec(degree=api.DegreeSearch(max_degree=4, folds=0),
+                       numerics=api.NumericsPolicy(normalize=True),
+                       domain=(0.5, 0.25) if pinned else None)
+    res = api.fit(x, y, spec, device=CPU)
+    if pinned:
+        assert calls == []
+        assert (float(res.poly.domain_shift),
+                float(res.poly.domain_scale)) == (0.5, 0.25)
+    else:
+        assert len(calls) == 1 and calls[0] is x
+        want = real(x)
+        assert torch.equal(res.poly.domain_shift, want.shift)
+        assert torch.equal(res.poly.domain_scale, want.scale)

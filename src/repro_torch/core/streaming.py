@@ -42,13 +42,17 @@ class StreamState:
     BOTH the total and one fold, round-robin per chunk (``fold_index``, a
     host integer), so ``current_selection()`` runs moment-space k-fold CV
     with zero re-reads of the stream.  ``spec`` is the optional
-    ``FitSpec`` the state was created for."""
+    ``FitSpec`` the state was created for.  ``host_decay`` is ``decay`` as
+    a host float, so ``update`` tells γ = 1 without reading the device;
+    ``None`` (a state built without it) folds as if γ < 1, with the same
+    bits."""
 
     moments: moments_lib.Moments
     decay: torch.Tensor   # scalar in (0, 1] of the state's dtype
     fold_moments: moments_lib.Moments | None = None  # (k, ...batch)
     fold_index: int | None = None                    # next fold
     spec: object = None
+    host_decay: float | None = None
 
     @staticmethod
     def create(degree: int, batch: tuple[int, ...] = (), *,
@@ -61,10 +65,12 @@ class StreamState:
                                            dtype, dev)
                  if cv_folds >= 2 else None)
         idx = 0 if cv_folds >= 2 else None
+        # γ filled on the device (no host-to-device copy) and on the host
         return StreamState(moments_lib.Moments.zeros(degree, batch, dtype,
                                                      dev),
-                           torch.tensor(decay, dtype=dtype, device=dev),
-                           folds, idx, spec)
+                           torch.full((), decay, dtype=dtype, device=dev),
+                           folds, idx, spec,
+                           float(torch.full((), decay, dtype=dtype)))
 
     @property
     def device(self) -> torch.device:
@@ -89,7 +95,8 @@ class StreamState:
     def restore(snap: dict, *, spec=None, device=None) -> "StreamState":
         """Rebuild a ``StreamState`` from a ``snapshot()`` dict on
         ``device`` (``None`` means CUDA); ``spec`` re-attaches the
-        ``FitSpec`` the state accumulates under."""
+        ``FitSpec`` the state accumulates under; ``host_decay`` comes
+        from the snapshot's ``decay``."""
         dev = resolve_device(device)
 
         def tensor(a):
@@ -99,7 +106,8 @@ class StreamState:
             return moments_lib.Moments(*(tensor(d[f]) for f in _FIELDS))
         folds = mk(snap["folds"]) if "folds" in snap else None
         idx = int(snap["fold_index"]) if "fold_index" in snap else None
-        return StreamState(mk(snap), tensor(snap["decay"]), folds, idx, spec)
+        return StreamState(mk(snap), tensor(snap["decay"]), folds, idx, spec,
+                           float(np.asarray(snap["decay"])))
 
     def current_selection(self, *, criterion: str | None = None,
                           ridge: float = 0.0, solver: str = "auto",
@@ -142,6 +150,18 @@ def _scaled(m: moments_lib.Moments, g: torch.Tensor) -> moments_lib.Moments:
                                count=m.count)
 
 
+def _unit_decay(state: StreamState) -> bool:
+    """γ = 1, known on the host: nothing decays."""
+    return state.host_decay == 1.0
+
+
+def _decay_factor(state: StreamState, n: int) -> torch.Tensor:
+    """γ**n as a tensor power in the state's dtype; the exponent is filled
+    on the device, so no host-to-device copy drains its queue."""
+    return state.decay ** torch.full((), n, dtype=state.decay.dtype,
+                                     device=state.decay.device)
+
+
 def streaming_irls_weights(state: StreamState, xt: torch.Tensor,
                            y: torch.Tensor, base_w: torch.Tensor, *,
                            solve, psi, sweeps: int, engine: str = "auto",
@@ -166,13 +186,14 @@ def streaming_irls_weights(state: StreamState, xt: torch.Tensor,
     wr = torch.where(determined, reweight(solve(state.moments)),
                      torch.ones_like(xt))
     if sweeps > 1:
-        g = state.decay ** torch.tensor(xt.shape[-1], dtype=state.decay.dtype,
-                                        device=state.decay.device)
-        old = moments_lib.map_fields(lambda a: a * g, state.moments)
-        dec = _decay_weights(state, xt, None)
+        old = state.moments
+        if not _unit_decay(state):
+            g = _decay_factor(state, xt.shape[-1])
+            old = moments_lib.map_fields(lambda a: a * g, old)
+        dec_w = _decay_weights(state, xt, base_w)
         plan = update_plan(state, tuple(xt.shape), xt.dtype, engine, basis)
         for _ in range(sweeps - 1):
-            new = engine_lib.compute_moments(plan, xt, y, dec * base_w * wr)
+            new = engine_lib.compute_moments(plan, xt, y, dec_w * wr)
             wr = reweight(solve(old + new))
     return wr
 
@@ -232,7 +253,9 @@ def update(state: StreamState, x, y, *, weights=None,
 
     With decay γ, previous weighted mass is multiplied by γ**n_new (a
     tensor power in the state's dtype), giving exact exponentially
-    weighted least squares (the newest point has weight 1).  ``count`` is
+    weighted least squares (the newest point has weight 1); at γ = 1
+    nothing is rescaled and a chunk without weights takes the unweighted
+    moment pass.  ``count`` is
     exempt from decay: it keeps the true number of contributing points,
     from the USER weights only.  The chunk is moved to the state's device;
     ``engine`` picks the accumulation path via ``engine.plan_fit``
@@ -269,16 +292,17 @@ def update(state: StreamState, x, y, *, weights=None,
                   else torch.sum(weights != 0, dim=-1).to(cdt))
     new = dataclasses.replace(
         new, count=torch.broadcast_to(true_count, new.count.shape))
-    n_new = torch.tensor(x.shape[-1], dtype=state.decay.dtype, device=dev)
-    g = state.decay ** n_new
-    old = _scaled(state.moments, g)
+    old, folds_old = state.moments, state.fold_moments
+    if not _unit_decay(state):
+        g = _decay_factor(state, x.shape[-1])
+        old = _scaled(old, g)
+        folds_old = None if folds_old is None else _scaled(folds_old, g)
     if state.fold_moments is None:
         return dataclasses.replace(state, moments=old + new)
     # the chunk's moments are in hand: fold them into one fold partial as
     # well (round-robin per chunk), so the k-fold CV state costs no extra
     # pass.  Decay applies to the fold partials as to the total.
     k = state.fold_moments.gram.shape[0]
-    folds_old = _scaled(state.fold_moments, g)
     idx = state.fold_index % k
 
     def add_to_fold(f, a):
@@ -291,8 +315,16 @@ def update(state: StreamState, x, y, *, weights=None,
 
 
 def _decay_weights(state: StreamState, x: torch.Tensor,
-                   weights: torch.Tensor | None) -> torch.Tensor:
-    # newest point gets γ⁰, oldest in chunk γ^{n-1} (γ=1 → all ones)
+                   weights: torch.Tensor | None) -> torch.Tensor | None:
+    """``weights`` times the chunk's decay ladder: the newest point gets
+    γ⁰, the oldest γ^{n-1}.  At γ = 1 the ladder is all ones and is left
+    out (``weights`` come back as they are, ``None`` for none) wherever
+    that hands the moment pass the same operands in the same dtypes: x,
+    and the weights if any, in the state's dtype."""
+    acc = state.moments.gram.dtype
+    if (_unit_decay(state) and x.dtype == acc
+            and (weights is None or weights.dtype == acc)):
+        return weights
     w = torch.broadcast_to(
         moments_lib.decay_ladder(x.shape[-1], state.decay, x.dtype,
                                  x.device), x.shape)

@@ -304,22 +304,23 @@ def plan_fit(shape: tuple[int, ...], degree: int, *,
                    **common)
 
 
-# counter on moment-producing calls: every compute_moments invocation and
-# the points it touches (the one-data-pass contract of degree selection is
-# asserted against it); the lock keeps it exact when fleet workers pump in
-# threads
-_MOMENT_COUNTER = {"calls": 0, "points": 0}
+# counter on moment-producing calls: every compute_moments invocation, the
+# points it touches (the one-data-pass contract of degree selection is
+# asserted against it) and the calls handed a weight array; the lock keeps
+# it exact when fleet workers pump in threads
+_MOMENT_COUNTER = {"calls": 0, "points": 0, "weighted": 0}
 _MOMENT_COUNTER_LOCK = threading.Lock()
 
 
 def reset_moment_counter() -> None:
     with _MOMENT_COUNTER_LOCK:
-        _MOMENT_COUNTER["calls"] = 0
-        _MOMENT_COUNTER["points"] = 0
+        for k in _MOMENT_COUNTER:
+            _MOMENT_COUNTER[k] = 0
 
 
 def moment_counter() -> dict:
-    """Snapshot of the moment-pass counter: {"calls": int, "points": int}."""
+    """Snapshot of the moment-pass counter: {"calls": int, "points": int,
+    "weighted": int}, ``weighted`` the calls handed a weight array."""
     with _MOMENT_COUNTER_LOCK:
         return dict(_MOMENT_COUNTER)
 
@@ -365,6 +366,7 @@ def compute_moments(plan: FitPlan, x: torch.Tensor, y: torch.Tensor,
     with _MOMENT_COUNTER_LOCK:
         _MOMENT_COUNTER["calls"] += 1
         _MOMENT_COUNTER["points"] += math.prod(x.shape)
+        _MOMENT_COUNTER["weighted"] += weights is not None
     if plan.uses_kernel:
         from repro_torch.kernels import ops as kernel_ops
         return kernel_ops.moments(

@@ -446,7 +446,8 @@ class _Bucket:
             m = moments_lib.Moments(
                 gram=m.gram * k[:, None, None], vty=m.vty * k[:, None],
                 yty=m.yty * k, count=m.count * k, weight_sum=m.weight_sum * k)
-            st = streaming.StreamState(m, state.decay)
+            st = streaming.StreamState(m, state.decay,
+                                       host_decay=state.host_decay)
             xt = dom.apply(x) if dom is not None else x
 
             def solve(mm):

@@ -564,6 +564,57 @@ def test_cuda_stream_snapshot_restore_is_bit_equal(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_unit_decay_stream_takes_the_unweighted_kernel_and_never_syncs(
+        cuda):
+    """The benchmark stream's shape: 4096 series fed the eight 8192-point
+    column blocks of a (4096, 65536) batch at degree 3.  At γ = 1
+    ``update`` hands the packed kernel no weights, and every running field
+    has the bits of the same stream through the weighted launch (explicit
+    ones, and a state without ``host_decay``, which takes the ladder).  An
+    update at γ = 1 and one at γ = 0.99 run with the sync debug mode at
+    "error": neither drains the queue."""
+    import dataclasses
+
+    from repro_torch import api, engine
+    from repro_torch.core import streaming
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.rand(4096, 65536, generator=g, device=cuda) * 4 - 2
+    y = 0.5 - x + 0.75 * x ** 3 + 0.1 * torch.randn(
+        x.shape, generator=g, device=cuda)
+    blocks = [(x[:, lo:lo + 8192], y[:, lo:lo + 8192])
+              for lo in range(0, 65536, 8192)]
+
+    def run(state, ones=False):
+        engine.reset_moment_counter()
+        K.reset_launch_counts()
+        for xb, yb in blocks:
+            state = streaming.update(
+                state, xb, yb, weights=torch.ones_like(xb) if ones else None)
+        return (state, engine.moment_counter()["weighted"],
+                K.launch_counts()["moments_packed"])
+
+    start = api.FitSpec(degree=3).streaming((4096,))
+    got, weighted, launches = run(start)
+    assert (weighted, launches) == (0, 8)
+    for st, weighted, launches in (
+            run(start, ones=True),
+            run(dataclasses.replace(start, host_decay=None))):
+        assert (weighted, launches) == (8, 8)
+        for f in ("gram", "vty", "yty", "count", "weight_sum"):
+            assert torch.equal(getattr(got.moments, f),
+                               getattr(st.moments, f)), f
+    for decay in (1.0, 0.99):
+        st = streaming.update(api.FitSpec(degree=3, decay=decay)
+                              .streaming((4096,)), *blocks[0])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            streaming.update(st, *blocks[1])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
 def test_cuda_stream_plans_by_shape(cuda):
     """A batch of series takes the packed kernel, one long series the
     plain kernel, one short series the reference path: on CUDA tensors,

@@ -81,10 +81,11 @@ def test_moment_counter_counts_passes():
     p = teng.plan_fit((2, 30), 2)
     x = torch.rand(2, 30, dtype=torch.float64)
     teng.compute_moments(p, x, x)
-    teng.compute_moments(p, x, x)
-    assert teng.moment_counter() == {"calls": 2, "points": 120}
+    teng.compute_moments(p, x, x, torch.ones_like(x))
+    assert teng.moment_counter() == {"calls": 2, "points": 120,
+                                     "weighted": 1}
     teng.reset_moment_counter()
-    assert teng.moment_counter() == {"calls": 0, "points": 0}
+    assert teng.moment_counter() == {"calls": 0, "points": 0, "weighted": 0}
 
 
 # ------------------------------------------- the deprecated use_kernel= alias

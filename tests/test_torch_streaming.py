@@ -13,6 +13,8 @@ Tolerances:
 * streaming IRLS: the weights pass through a sort-based MAD scale on both
   sides; values within 1e-4 (f32) / 1e-9 (f64) of max|y|.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -275,6 +277,86 @@ def test_snapshot_restore_is_bit_exact_mid_stream():
     assert rs.fold_index == st.fold_index == 4
     assert torch.equal(api.stream_result(rs).coeffs,
                        api.stream_result(st).coeffs)
+
+
+UNIT_CASES = {
+    # case: (FitSpec arguments of a package's api, chunks' dtype, user
+    # weights, every pass handed a weight array)
+    "plain": (lambda a: dict(degree=3), np.float32, False, False),
+    "folds": (lambda a: dict(degree=a.DegreeSearch(max_degree=3, folds=3),
+                             domain=(0.0, 1.0 / 1.5)),
+              np.float32, False, False),
+    "folds_decay": (lambda a: dict(degree=a.DegreeSearch(max_degree=3,
+                                                         folds=3),
+                                   domain=(0.0, 1.0 / 1.5), decay=0.99),
+                    np.float32, False, True),
+    "weights": (lambda a: dict(degree=3), np.float32, True, True),
+    "irls": (lambda a: dict(degree=3, method="irls"), np.float32, False,
+             True),
+    "decay": (lambda a: dict(degree=3, decay=0.99), np.float32, False, True),
+    "wide_chunks": (lambda a: dict(degree=3), np.float64, False, True),
+}
+
+
+def _assert_states_equal(a, b):
+    for ma, mb in ((a.moments, b.moments), (a.fold_moments, b.fold_moments)):
+        assert (ma is None) == (mb is None)
+        for f in FIELDS if ma is not None else ():
+            assert torch.equal(getattr(ma, f), getattr(mb, f)), f
+    assert a.fold_index == b.fold_index
+
+
+@pytest.mark.parametrize("engine", ["reference", "kernel"])
+@pytest.mark.parametrize("case", sorted(UNIT_CASES))
+def test_unit_decay_leaves_the_ladder_out_with_the_same_bits(case, engine):
+    """At γ = 1 a stream hands the moment pass its chunks' own weights,
+    none where there are none, and rescales nothing.  Every field, fold
+    partials included, keeps the bits of the ladder path (the state
+    without ``host_decay``, which folds as γ < 1 does) and, without user
+    weights, of the same chunks weighted by explicit ones; and is the
+    reference's to the module's tolerance.  A γ < 1 stream, user or IRLS
+    weights and chunks wider than the state's dtype still hand the pass a
+    weight array.  A snapshot, in its unchanged layout, restores the host
+    γ from its ``decay`` and continues with the same bits."""
+    from repro_torch import engine as engine_lib
+    kw, npd, user_w, weighted = UNIT_CASES[case]
+    chunks = _chunks(11, (3,), 4, 96, 3, npd)
+
+    def run(state, chunks, weighted=weighted, ones=False):
+        engine_lib.reset_moment_counter()
+        for x, y, w in chunks:
+            w = np.ones_like(x) if ones else w if user_w else None
+            state = streaming.update(state, x, y, weights=w)
+        counter = engine_lib.moment_counter()
+        assert counter["calls"] >= len(chunks)
+        assert counter["weighted"] == (counter["calls"] if weighted else 0)
+        return state
+
+    spec = api.FitSpec(engine=engine, **kw(api))
+    start = spec.streaming((3,), dtype=torch.float32, device=CPU)
+    assert start.host_decay == float(start.decay) == float(
+        np.float32(spec.decay))
+    got = run(start, chunks)
+    _assert_states_equal(got, run(
+        dataclasses.replace(start, host_decay=None), chunks, weighted=True))
+    if not weighted:
+        _assert_states_equal(got, run(start, chunks, weighted=True,
+                                      ones=True))
+    with _x64(npd):
+        js = japi.stream_state(japi.FitSpec(**kw(japi)), (3,),
+                               dtype=jnp.float32)
+        for x, y, w in chunks:
+            js = jstreaming.update(js, jnp.asarray(x), jnp.asarray(y),
+                                   weights=jnp.asarray(w) if user_w
+                                   else None)
+        _assert_snapshots_close(got.snapshot(), js.snapshot(), np.float32)
+    snap = run(start, chunks[:2]).snapshot()
+    assert sorted(snap) == sorted(
+        FIELDS + ("decay",) + (("folds", "fold_index")
+                               if start.fold_moments is not None else ()))
+    back = streaming.StreamState.restore(snap, spec=spec, device=CPU)
+    assert back.host_decay == float(snap["decay"]) == start.host_decay
+    _assert_states_equal(run(back, chunks[2:]), got)
 
 
 def _offers():

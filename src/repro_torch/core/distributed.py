@@ -303,7 +303,7 @@ def make_spec_executor(spec, mesh, *,
         delta = torch.full(tuple(xt.shape[:-1]), float("inf"),
                            dtype=xt.dtype, device=xt.device)
         it = 0
-        while it < opts.max_iter and bool(torch.any(delta > tol)):
+        while it < opts.max_iter and robust_lib.still_moving(delta, tol):
             m = gmoments(xt, y, reweight(coeffs))
             new, cond, used = solve(m)
             scale = torch.clamp(torch.amax(torch.abs(new), dim=-1), min=1.0)

@@ -22,6 +22,7 @@ from repro_torch.core import basis as basis_lib
 from repro_torch.core import fit as fit_lib
 from repro_torch.core import solve as solve_lib
 from repro_torch.device import as_tensor, resolve_device
+from repro_torch.obs import spans
 
 HUBER = "huber"
 TUKEY = "tukey"
@@ -95,6 +96,7 @@ def _nanmedian(a: torch.Tensor) -> torch.Tensor:
             + 0.5 * torch.take_along_dim(s, hi, dim=-1))
 
 
+@spans.span("irls.scale")
 def chunk_scale(r: torch.Tensor, base_w: torch.Tensor,
                 y: torch.Tensor) -> torch.Tensor:
     """Robust σ̂ (1.4826·MAD, floored) of one chunk of residuals, (..., 1).
@@ -112,6 +114,13 @@ def chunk_scale(r: torch.Tensor, base_w: torch.Tensor,
     return torch.maximum(1.4826 * mad, floor)
 
 
+@spans.span("irls.converge")
+def still_moving(delta: torch.Tensor, tol: float) -> bool:
+    """Whether any series' coefficient change exceeds ``tol``: the IRLS
+    loop's one read back to the host a sweep, which drains the queue."""
+    return bool(torch.any(delta > tol))
+
+
 def irls_fit(x: torch.Tensor, y: torch.Tensor,
              weights: torch.Tensor | None, spec):
     """The IRLS engine, keyed on a ``FitSpec`` (method="irls").
@@ -120,7 +129,10 @@ def irls_fit(x: torch.Tensor, y: torch.Tensor,
     the base weights, which a DegreeSearch under robust loss feeds into
     its weighted ladder.  Every iteration is one weighted moment pass (the
     same plan as any weighted LSE fit) and one condition-aware solve; the
-    loop reads ``any(delta > tol)`` back once per iteration."""
+    loop reads ``any(delta > tol)`` back once per iteration
+    (``still_moving``).  Phase spans: ``irls.sweep`` each iteration,
+    ``irls.scale`` each MAD scale (``chunk_scale``), ``irls.weights`` the
+    residuals and the ψ weights, ``irls.converge`` each stop test."""
     from repro_torch import engine as engine_lib
     opts = spec.irls
     loss = opts.loss
@@ -147,8 +159,13 @@ def irls_fit(x: torch.Tensor, y: torch.Tensor,
             cond_cap=pol.cond_cap)
 
     def sigma_of(coeffs):
-        r = y - basis_lib.evaluate(coeffs, xt, basis=spec.basis)
+        with spans.span("irls.weights"):
+            r = y - basis_lib.evaluate(coeffs, xt, basis=spec.basis)
         return r, chunk_scale(r, base_w, y)
+
+    def psi_weights(r, sigma):
+        with spans.span("irls.weights"):
+            return robust_weights(r / sigma, loss, cval) * base_w
 
     coeffs, cond, used = fit_with(base_w)
     # near-exact fits jitter at ~100s of ulps as the weights flip on
@@ -157,16 +174,16 @@ def irls_fit(x: torch.Tensor, y: torch.Tensor,
     delta = torch.full(tuple(x.shape[:-1]), float("inf"), dtype=x.dtype,
                        device=x.device)
     it = 0
-    while it < opts.max_iter and bool(torch.any(delta > tol)):
-        r, sigma = sigma_of(coeffs)
-        w = robust_weights(r / sigma, loss, cval) * base_w
-        new, cond, used = fit_with(w)
-        scale = torch.clamp(torch.amax(torch.abs(new), dim=-1), min=1.0)
-        delta = torch.amax(torch.abs(new - coeffs), dim=-1) / scale
-        coeffs = new
-        it += 1
+    while it < opts.max_iter and still_moving(delta, tol):
+        with spans.span("irls.sweep"):
+            r, sigma = sigma_of(coeffs)
+            new, cond, used = fit_with(psi_weights(r, sigma))
+            scale = torch.clamp(torch.amax(torch.abs(new), dim=-1), min=1.0)
+            delta = torch.amax(torch.abs(new - coeffs), dim=-1) / scale
+            coeffs = new
+            it += 1
     r, sigma = sigma_of(coeffs)
-    final_w = robust_weights(r / sigma, loss, cval) * base_w
+    final_w = psi_weights(r, sigma)
     diag = fit_lib.FitDiagnostics(condition=cond, fallback_used=used,
                                   solver=pol.solver,
                                   fallback=pol.fallback or "none")

@@ -119,6 +119,72 @@ def test_pinned_domain_update_records_its_domain_map():
     assert _children(rec, up) == ["fit.domain", "fit.plan", "fit.moments"]
 
 
+def _contaminated(b=16, n=512, seed=0):
+    """``_batch`` with a fifth of the points thrown off by ±50."""
+    x, y = _batch(b, n, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    bad = torch.rand(b, n, generator=g) < 0.2
+    sign = torch.where(torch.rand(b, n, generator=g) < 0.5, -1.0, 1.0)
+    return x, torch.where(bad, y + 50.0 * sign, y)
+
+
+def _under(rec, i, name):
+    """Whether span ``i`` lies inside a span called ``name``."""
+    while i >= 0:
+        if rec[i].name == name:
+            return True
+        i = rec[i].parent
+    return False
+
+
+@pytest.mark.parametrize("loss", ["tukey", "huber"])
+def test_irls_fit_records_its_sweeps(loss):
+    x, y = _contaminated()
+    spec = api.FitSpec(degree=3, method="irls",
+                       irls=api.IRLSOptions(loss=loss))
+    with _cpu_profile():
+        res = api.fit(x, y, spec, device="cpu")
+    rec = spans.recorded()
+    it = res.iterations
+    assert 0 < it < spec.irls.max_iter and bool(res.converged.all())
+    assert [s.name for s in rec if s.parent == -1] == ["api.fit"]
+    count = Counter(s.name for s in rec)
+    assert count["irls.sweep"] == it
+    assert count["irls.scale"] == it + 1
+    # a stop test before every sweep, and the one that ended the loop
+    assert count["irls.converge"] == it + 1
+    # the residuals and the ψ weights of every sweep and of the end
+    assert count["irls.weights"] == 2 * (it + 1)
+    assert count["fit.moments"] == it + 1
+    for i, s in enumerate(rec):
+        if s.name.startswith("irls."):
+            assert _under(rec, i, "api.fit"), s
+        if s.name == "irls.sweep":
+            kids = sorted((k for k in rec if k.parent == i),
+                          key=lambda k: k.start_us)
+            assert [k.name for k in kids] == [
+                "irls.weights", "irls.scale", "irls.weights", "fit.moments"]
+        if s.name == "irls.converge":
+            assert not _under(rec, i, "irls.sweep")
+    converge = sorted((s.start_us for s in rec if s.name == "irls.converge"))
+    sweeps = sorted((s.start_us for s in rec if s.name == "irls.sweep"))
+    assert all(a < b for a, b in zip(converge, sweeps))
+
+
+def test_irls_stream_update_records_its_scale():
+    x, y = _contaminated()
+    spec = api.FitSpec(degree=3, method="irls",
+                       irls=api.IRLSOptions(loss="tukey"))
+    with _cpu_profile():
+        st = spec.streaming((16,), device="cpu")
+        for i in range(4):
+            st = streaming.update(st, x[:, i * 128:(i + 1) * 128],
+                                  y[:, i * 128:(i + 1) * 128])
+    rec = spans.recorded()
+    scale = [i for i, s in enumerate(rec) if s.name == "irls.scale"]
+    assert len(scale) == 4 * spec.irls.stream_sweeps
+    assert all(_under(rec, i, "stream.update") for i in scale)
+
 def test_stamps_sit_on_the_trace_clock(tmp_path):
     x, y = _batch()
     spec = api.FitSpec(degree=3)
